@@ -3,32 +3,51 @@
 
     python3 chip_smoke.py [--report PATH]
 
-Phases, in order; any failure exits non-zero before the last line:
+Phases, in order; any failure exits non-zero before the last line, and
+no phase catches its own failure:
 
 1. device   — the card's name and count, and ``nvidia-smi``'s name and
               power limit;
 2. build    — the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
               ``sm_90a``), with the compiler's register/spill report;
 3. kernels  — each kernel against its plain PyTorch version on the card,
-              at the serving path's shapes and a GQA shape, within f32 2e-5
-              / bf16 2e-2 (the reference's ``tests/test_kernels.py``);
-4. times    — CUDA-event times at the serving path's shapes: kernel, plain
+              within f32 2e-5 / bf16 2e-2 (the reference's
+              ``tests/test_kernels.py``): RMSNorm at the serving path's
+              row and the forward's 32,768 rows, decode attention at the
+              serving path's shapes and a GQA shape, flash attention at
+              qwen's, a windowed GQA and hubert's (odd S) shapes and, in
+              bf16, at the prefill phase's B 8 x S 4096 and B 1 x S 32768
+              (the latter held one head at a time);
+4. times    — CUDA-event times at the paths' shapes: kernel, plain
               version, one library call computing the same function
               (yardstick only; the port never calls it), and the bound;
+              flash attention at the three shapes above and at prefill's
+              B 8 x S 4096;
 5. serving  — ``repro_torch.launch.serve.serve`` on qwen1.5-0.5b at full
               width (8 requests, bf16, seeded weights): every request
               finishes, and the launch counters show 49 RMSNorm and 24
               decode-attention launches per ``decode_step``; a full-width
               replay gives finite logits and the served first token;
 6. profile  — ``torch.profiler`` over full-width decode steps: device
-              time by kernel and the device's busy share (informational);
-7. card/CPU — the smoke config in f32 served on the card and on the CPU
-              (plain versions) from the same seeded weights, TF32 off:
-              identical tokens, logits within 1e-3.
+              time by kernel and the device's busy share;
+7. prefill  — ``prefill_logits`` on qwen1.5-0.5b at full width (bf16,
+              seeded weights) at B 8 x S 4096 and B 1 x S 32768: exactly
+              24 flash-attention and 49 RMSNorm launches per call, finite
+              logits, wall ms per call, prompt tokens/s, peak memory, and
+              a profiled call (flash's device time per launch);
+8. forward  — on qwen at full width in f32 (TF32 off), ``prefill_logits``
+              through the kernels against ``impl="xla"``, and against a
+              decode replay of a 64-token prompt (kernel 3 against
+              kernel 2); ``forward`` of hubert-xlarge at full width
+              (48 flash launches, finite);
+9. card/CPU — the smoke config in f32 on the card and on the CPU (plain
+              versions) from the same seeded weights, TF32 off: served
+              tokens identical and logits within 1e-3, and
+              ``prefill_logits`` within 1e-3.
 
 The last lines are the kernels' JSON record, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes a
-fuller JSON report (every timing repeat, the profile's top kernels).
+fuller JSON report (every timing repeat, the profiles' top kernels).
 Exits 1 at once where ``torch.cuda.is_available()`` is false.
 """
 
@@ -111,6 +130,31 @@ def compare(label: str, got, want, dtype, errs: list) -> None:
     require(ok, f"{label}: kernel disagrees with its plain version")
 
 
+def device_rows(prof) -> list[tuple[str, float, int]]:
+    """(kernel name, device µs, count) of a profile, device-side events
+    only: CPU ops (aten::mm) also report the device time of the kernels
+    they launch, which would count twice."""
+    rows = [(e.key, e.self_device_time_total, e.count)
+            for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA
+            and e.self_device_time_total > 0]
+    rows.sort(key=lambda r: -r[1])
+    require(bool(rows), "the profiler saw no device time")
+    return rows
+
+
+def flash_causal_ops(B: int, S: int, H: int, D: int, window=None,
+                     causal: bool = True) -> float:
+    """Multiply-adds x 2 of QK^T and P.V over the (query, key) pairs the
+    mask lets through, for T = S."""
+    s = np.arange(S)
+    lo = np.zeros(S, np.int64) if window is None else \
+        np.maximum(s - window + 1, 0)
+    hi = s + 1 if causal else np.full(S, S)
+    pairs = float(np.sum(hi - lo))
+    return 4.0 * B * H * pairs * D
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--report", type=Path, default=None,
@@ -120,19 +164,22 @@ def main(argv=None) -> int:
         print("chip_smoke: no CUDA device; nothing to run", file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
-    from repro_torch.configs import get_config
+    from repro_torch.configs import SHAPES, get_config
     from repro_torch.kernels import (build, decode_attention,
-                                     decode_attention_plain, launch_counts,
+                                     decode_attention_plain, flash_attention,
+                                     flash_attention_plain, launch_counts,
                                      reset_launch_counts, rmsnorm_rows,
                                      rmsnorm_rows_plain)
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
     from repro_torch.serve import Request, SchedulerPolicy, ServingEngine
+    from torch.profiler import ProfilerActivity, profile
 
     import torch.nn.functional as F
 
     report: dict = {}
     dev = torch.device("cuda")
+    spec_32k = SHAPES["prefill_32k"]
 
     # 1. device ---------------------------------------------------------
     name, count = torch.cuda.get_device_name(0), torch.cuda.device_count()
@@ -162,14 +209,15 @@ def main(argv=None) -> int:
         x = torch.randn(shape, generator=gen) * scale + shift
         return x.to(dev, dtype)
 
-    errs = {"rmsnorm": [], "decode_attention": []}
+    errs = {"rmsnorm": [], "decode_attention": [], "flash_attention": []}
     print("[kernels] RMSNorm vs plain")
-    for rows in (1, 64):
+    for rows in (1, 64, 32768):
         for dt in (torch.bfloat16, torch.float32):
             x = randn(rows, 1024, dtype=dt)
             s = randn(1024, scale=0.1, shift=1.0)
             compare(f"rmsnorm ({rows}, 1024) {dt}", rmsnorm_rows(x, s),
                     rmsnorm_rows_plain(x, s), dt, errs["rmsnorm"])
+    del x
     print("[kernels] decode attention vs plain")
     cases = [((1, 16, 16, 512, 64), [1, 100, 128, 511, 512]),
              ((4, 32, 8, 4096, 128), [1, 1000, 4095, 4096]),
@@ -192,16 +240,51 @@ def main(argv=None) -> int:
                         errs["decode_attention"])
                 if B > 1:
                     break
+    print("[kernels] flash attention vs plain")
+    flash_cases = [  # (B, S, H, Hkv, D, causal, window)
+        (1, 4096, 16, 16, 64, True, None),     # qwen1.5-0.5b's forward
+        (1, 2048, 32, 8, 128, True, 1024),     # GQA with a window
+        (1, 1000, 16, 16, 80, False, None),    # hubert-xlarge, odd S
+    ]
+    for B, S, H, Hkv, D, causal, window in flash_cases:
+        for dt in (torch.bfloat16, torch.float32):
+            q = randn(B, S, H, D, dtype=dt)
+            k = randn(B, S, Hkv, D, dtype=dt)
+            v = randn(B, S, Hkv, D, dtype=dt)
+            compare(f"flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} "
+                    f"causal={causal} window={window} {dt}",
+                    flash_attention(q, k, v, causal=causal, window=window),
+                    flash_attention_plain(q, k, v, causal=causal,
+                                          window=window),
+                    dt, errs["flash_attention"])
+    # the prefill path's two shapes (§7), bf16.  B 8 x S 4096 in one plain
+    # call (8.6 GB of f32 scores); B 1 x S 32768 (512 query tiles, KV walks
+    # up to 512 tiles) in one kernel call, held one head at a time against
+    # the plain version on that head's strided views (4.3 GB of scores)
+    for B, S in ((8, 4096), (1, spec_32k.seq_len)):
+        q, k, v = (randn(B, S, 16, 64, dtype=torch.bfloat16)
+                   for _ in range(3))
+        step = 16 if S <= 4096 else 1   # heads per plain call
+        want = torch.cat([flash_attention_plain(q[:, :, h:h + step],
+                                                k[:, :, h:h + step],
+                                                v[:, :, h:h + step])
+                          for h in range(0, 16, step)], dim=2)
+        compare(f"flash_attention B={B} S={S} H=16 Hkv=16 D=64 causal=True "
+                f"window=None {torch.bfloat16} (prefill's shape; plain "
+                f"{step} head(s) per call)", flash_attention(q, k, v),
+                want, torch.bfloat16, errs["flash_attention"])
+        del q, k, v, want
     torch.cuda.synchronize()
+    torch.cuda.empty_cache()
 
-    # 4. times at the serving path's shapes --------------------------------
-    print("[times] CUDA events: median of 5 repeats of 200 calls, after "
-          "20 warm-up calls")
+    # 4. times at the paths' shapes -----------------------------------------
+    print("[times] CUDA events: median of 5 repeats of n back-to-back calls "
+          "after warm-up calls (n = 200 and 20 warm-up calls unless shown)")
     kern = {}
     repeats: dict = {}
 
-    def timed(name, fn):
-        return time_ms(fn, runs_out=repeats.setdefault(name, []))
+    def timed(name, fn, **kw):
+        return time_ms(fn, runs_out=repeats.setdefault(name, []), **kw)
 
     x = randn(1, 1024, dtype=torch.bfloat16)
     s = randn(1024, scale=0.1, shift=1.0)
@@ -224,12 +307,8 @@ def main(argv=None) -> int:
         ln = torch.full((B,), L, dtype=torch.int32, device=dev)
         q4 = q.view(B, H, 1, D)
         k4, v4 = k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
-        try:
-            lib = timed(f"decode_attention.L{L}.sdpa",
-                        lambda: F.scaled_dot_product_attention(q4, k4, v4))
-        except RuntimeError as e:   # a yardstick, not the port
-            print(f"[times]   sdpa unavailable: {e}")
-            lib = None
+        lib = timed(f"decode_attention.L{L}.sdpa",
+                    lambda: F.scaled_dot_product_attention(q4, k4, v4))
         a_bytes = 2 * q.numel() * 2 + 2 * B * L * Hkv * D * 2 + 4 * B
         a_bound, a_by = bound(a_bytes, 4 * B * H * L * D + 3 * B * H * L,
                               torch.bfloat16)
@@ -241,16 +320,60 @@ def main(argv=None) -> int:
             "library_ms": lib, "bound_ms": a_bound, "bound_by": a_by,
             "shape": f"q (1, 16, 64) bf16, cache (1, 512, 16, 64) bf16, L={L}"}
     kern["decode_attention"] = att[128]
+    # flash attention at the shapes of §3 and prefill's B 8; SDPA gets its
+    # own (B, H, S, D) layout, the KV heads repeated to H and the window as
+    # a boolean mask, ready-made, so its time has none of that in it
+    flash_t = {}
+    for key, (B, S, H, Hkv, D, causal, window) in {
+            "qwen": (1, 4096, 16, 16, 64, True, None),
+            "qwen_B8": (8, 4096, 16, 16, 64, True, None),
+            "gqa_window": (1, 2048, 32, 8, 128, True, 1024),
+            "hubert": (1, 1000, 16, 16, 80, False, None)}.items():
+        q = randn(B, S, H, D, dtype=torch.bfloat16)
+        k, v = (randn(B, S, Hkv, D, dtype=torch.bfloat16) for _ in range(2))
+        qt = q.transpose(1, 2).contiguous()
+        kt, vt = (t.repeat_interleave(H // Hkv, dim=2).transpose(1, 2)
+                  .contiguous() for t in (k, v))
+        mask = None
+        if window is not None:
+            i = torch.arange(S, device=dev)
+            mask = ((i[None, :] <= i[:, None])
+                    & (i[None, :] > i[:, None] - window))
+        kw = dict(causal=causal, window=window)
+        f_bound, f_by = bound(2 * B * S * (H + Hkv) * D * 2,
+                              flash_causal_ops(B, S, H, D, window, causal),
+                              torch.bfloat16)
+        flash_t[key] = {
+            "ms": timed(f"flash_attention.{key}",
+                        lambda: flash_attention(q, k, v, **kw), n=20, warm=3),
+            "plain_ms": timed(f"flash_attention.{key}.plain",
+                              lambda: flash_attention_plain(q, k, v, **kw),
+                              n=5, warm=2),
+            "library_ms": timed(
+                f"flash_attention.{key}.sdpa",
+                lambda: F.scaled_dot_product_attention(
+                    qt, kt, vt, attn_mask=mask,
+                    is_causal=causal and mask is None),
+                n=20, warm=3),
+            "bound_ms": f_bound, "bound_by": f_by,
+            "shape": f"q ({B}, {S}, {H}, {D}), k/v ({B}, {S}, {Hkv}, {D}) "
+                     f"bf16, causal={causal}, window={window}"}
+        del q, k, v, qt, kt, vt, mask
+    torch.cuda.empty_cache()
+    kern["flash_attention"] = flash_t["qwen"]
     report["times"] = {"rmsnorm": kern["rmsnorm"],
                        "decode_attention": {str(L): a for L, a in att.items()},
+                       "flash_attention": flash_t,
                        "repeats_ms": repeats}
     for label, t in [("rmsnorm", kern["rmsnorm"]),
                      ("decode_attention L=128", att[128]),
-                     ("decode_attention L=512", att[512])]:
-        lib = "n/a" if t["library_ms"] is None else f"{t['library_ms']:.5f}"
+                     ("decode_attention L=512", att[512])] + [
+                        (f"flash_attention {key} (n 20, plain n 5)", t)
+                        for key, t in flash_t.items()]:
         print(f"[times] {label}: kernel {t['ms']:.5f} ms, plain "
-              f"{t['plain_ms']:.5f} ms, library {lib} ms, bound "
-              f"{t['bound_ms']:.3e} ms ({t['bound_by']}) [{t['shape']}]")
+              f"{t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} ms, "
+              f"bound {t['bound_ms']:.3e} ms ({t['bound_by']}) "
+              f"[{t['shape']}]")
 
     # 5. serving at full width -------------------------------------------
     print("[serve] qwen1.5-0.5b full, 8 requests, max_len 512, 32 new "
@@ -271,8 +394,10 @@ def main(argv=None) -> int:
     print(f"[serve] decode_steps={n_steps} launches={counts} "
           f"(want rmsnorm {49 * n_steps}, decode_attention {24 * n_steps})")
     require(counts == {"rmsnorm": 49 * n_steps,
-                       "decode_attention": 24 * n_steps},
+                       "decode_attention": 24 * n_steps,
+                       "flash_attention": 0},
             "the main path did not run the kernels once per layer")
+    serve_counts = counts
     cfg_full = get_config("qwen1.5-0.5b", "full")
     n_params = 463_987_712
     floor_ms = 2 * n_params / HBM_BPS * 1e3
@@ -321,66 +446,190 @@ def main(argv=None) -> int:
           f"{cfg_full.vocab}) finite, first token {first} as served")
 
     # 6. profile of full-width decode steps ------------------------------
-    try:
-        from torch.profiler import ProfilerActivity, profile
-        n_prof = 16
-        with torch.inference_mode():   # the same steps, unprofiled
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(n_prof):
-                logits, cache = T.decode_step(
-                    params, cfg_full, torch.tensor([first], device=dev),
-                    cache, plen + i)
-            torch.cuda.synchronize()
-            wall_plain = time.perf_counter() - t0
-        with torch.inference_mode(), profile(
-                activities=[ProfilerActivity.CPU,
-                            ProfilerActivity.CUDA]) as prof:
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            for i in range(n_prof):
-                logits, cache = T.decode_step(
-                    params, cfg_full, torch.tensor([first], device=dev),
-                    cache, plen + n_prof + i)
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
-
-        # Device-side events only: CPU ops (aten::mm) also report the
-        # device time of the kernels they launch, which would count twice.
-        rows = [(e.key, e.self_device_time_total, e.count)
-                for e in prof.key_averages()
-                if e.device_type == torch.autograd.DeviceType.CUDA
-                and e.self_device_time_total > 0]
-        rows.sort(key=lambda r: -r[1])
-        busy_us = sum(r[1] for r in rows)
-        prof_rep = {"steps": n_prof,
-                    "unprofiled_wall_ms_per_step": wall_plain * 1e3 / n_prof,
-                    "wall_ms_per_step": wall * 1e3 / n_prof,
-                    "device_busy_ms_per_step": busy_us / 1e3 / n_prof,
-                    "device_events_per_step":
-                        sum(r[2] for r in rows) / n_prof,
-                    "top": [{"name": n[:80], "device_us_per_step": t / n_prof,
-                             "calls_per_step": c / n_prof}
-                            for n, t, c in rows[:12]]}
-        prof_rep["device_busy_share"] = busy_us / 1e6 / wall_plain
-        print(f"[profile] {n_prof} steps: wall {wall_plain * 1e3 / n_prof:.3f}"
-              f" ms/step ({wall * 1e3 / n_prof:.3f} under the profiler), "
-              f"device busy {prof_rep['device_busy_share']:.1%} of it: "
-              f"{busy_us / 1e3 / n_prof:.3f} ms/step in "
-              f"{prof_rep['device_events_per_step']:.0f} kernels and copies")
-        for r in prof_rep["top"][:8]:
-            print(f"[profile]   {r['device_us_per_step']:9.2f} us/step "
-                  f"x{r['calls_per_step']:.0f}  {r['name']}")
-    except Exception as e:  # informational phase: the port is checked above
-        prof_rep = {"error": f"{type(e).__name__}: {e}"}
-        print(f"[profile] not measured: {prof_rep['error']}")
+    n_prof = 16
+    with torch.inference_mode():   # the same steps, unprofiled
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            logits, cache = T.decode_step(
+                params, cfg_full, torch.tensor([first], device=dev),
+                cache, plen + i)
+        torch.cuda.synchronize()
+        wall_plain = time.perf_counter() - t0
+    with torch.inference_mode(), profile(
+            activities=[ProfilerActivity.CPU,
+                        ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for i in range(n_prof):
+            logits, cache = T.decode_step(
+                params, cfg_full, torch.tensor([first], device=dev),
+                cache, plen + n_prof + i)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
+    busy_us = sum(r[1] for r in rows)
+    prof_rep = {"steps": n_prof,
+                "unprofiled_wall_ms_per_step": wall_plain * 1e3 / n_prof,
+                "wall_ms_per_step": wall * 1e3 / n_prof,
+                "device_busy_ms_per_step": busy_us / 1e3 / n_prof,
+                "device_events_per_step": sum(r[2] for r in rows) / n_prof,
+                "device_busy_share": busy_us / 1e6 / wall_plain,
+                "top": [{"name": n[:80], "device_us_per_step": t / n_prof,
+                         "calls_per_step": c / n_prof}
+                        for n, t, c in rows[:12]]}
+    print(f"[profile] {n_prof} steps: wall {wall_plain * 1e3 / n_prof:.3f}"
+          f" ms/step ({wall * 1e3 / n_prof:.3f} under the profiler), "
+          f"device busy {prof_rep['device_busy_share']:.1%} of it: "
+          f"{busy_us / 1e3 / n_prof:.3f} ms/step in "
+          f"{prof_rep['device_events_per_step']:.0f} kernels and copies")
+    for r in prof_rep["top"][:8]:
+        print(f"[profile]   {r['device_us_per_step']:9.2f} us/step "
+              f"x{r['calls_per_step']:.0f}  {r['name']}")
     report["profile"] = prof_rep
-    del params, cache
+    del cache
 
-    # 7. card vs CPU, smoke config in f32 ---------------------------------
+    # 7. prefill at full width ---------------------------------------------
+    print(f"[prefill] qwen1.5-0.5b full, bf16, seed 0: prefill_logits at "
+          f"B 8 x S 4096 and B 1 x S {spec_32k.seq_len} ({spec_32k.name}'s "
+          f"sequence, its global batch {spec_32k.global_batch} cut to 1)")
+    prefill_rep = {}
+    reset_launch_counts()
+    n_calls = 0
+    for B, S in ((8, 4096), (1, spec_32k.seq_len)):
+        toks = torch.randint(0, cfg_full.vocab, (B, S), generator=gen)
+        toks = toks.to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        walls = []
+        with torch.inference_mode():
+            for _ in range(4):   # the first call warms up, three are timed
+                t0 = time.perf_counter()
+                logits = T.prefill_logits(params, cfg_full, toks)
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                T.prefill_logits(params, cfg_full, toks)
+                torch.cuda.synchronize()
+                wall_prof = time.perf_counter() - t0
+        n_calls += 5
+        counts = launch_counts()
+        require(counts == {"rmsnorm": 49 * n_calls, "decode_attention": 0,
+                           "flash_attention": 24 * n_calls},
+                f"prefill B {B} x S {S}: launches {counts} after {n_calls} "
+                "calls; want 24 flash and 49 RMSNorm per call")
+        require(tuple(logits.shape) == (B, cfg_full.vocab),
+                f"prefill logits shape {tuple(logits.shape)}")
+        require(bool(torch.isfinite(logits).all()),
+                "non-finite prefill logits")
+        rows = device_rows(prof)
+        fl = [r for r in rows if "flash_attention" in r[0]]
+        require(len(fl) >= 1 and sum(r[2] for r in fl) == 24,
+                f"profile: flash launches {[(r[0][:40], r[2]) for r in fl]}")
+        flash_us = sum(r[1] for r in fl)
+        busy_us = sum(r[1] for r in rows)
+        ms = float(np.median(walls[1:])) * 1e3
+        rep = {"B": B, "S": S, "wall_ms_median_of_3": ms,
+               "wall_ms": [w * 1e3 for w in walls],
+               "prompt_tokens_per_s": B * S / ms * 1e3,
+               "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+               "profiled_wall_ms": wall_prof * 1e3,
+               "device_busy_ms": busy_us / 1e3,
+               "flash_device_us_per_launch": flash_us / 24,
+               "flash_share_of_device_time": flash_us / busy_us,
+               "top": [{"name": n[:80], "device_us": t, "calls": c}
+                       for n, t, c in rows[:10]]}
+        prefill_rep[f"B{B}xS{S}"] = rep
+        print(f"[prefill] B {B} x S {S}: {ms:.1f} ms per call (median of 3, "
+              f"synchronised; first call {walls[0] * 1e3:.1f} ms), "
+              f"{rep['prompt_tokens_per_s']:.0f} prompt tokens/s, peak "
+              f"memory {rep['max_memory_allocated_bytes']} bytes, logits "
+              f"{tuple(logits.shape)} finite")
+        print(f"[prefill]   profiled call: {wall_prof * 1e3:.1f} ms wall, "
+              f"device busy {busy_us / 1e3:.1f} ms, flash attention "
+              f"{flash_us / 24:.1f} us per launch x24 "
+              f"({rep['flash_share_of_device_time']:.1%} of device time)")
+        if ms > 10_000:
+            print(f"[prefill]   slow: {ms / 1e3:.1f} s per call")
+        del toks, logits
+    prefill_counts = launch_counts()
+    print(f"[prefill] launches over {n_calls} calls: {prefill_counts}")
+    report["prefill"] = prefill_rep
+    del params
+
+    # 8. forward checks ---------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    print("[card/cpu] TF32 off (matmul and cuDNN): both sides compute f32")
+    print("[forward] TF32 off (matmul and cuDNN): f32 computes f32")
+    fwd_rep = {}
+    cfg32 = cfg_full.replace(dtype="float32")
+    params32 = T.init(cfg32, seed=0, device=dev)
+    toks = torch.randint(0, cfg32.vocab, (2, 1024), generator=gen).to(dev)
+    with torch.inference_mode():
+        a = T.prefill_logits(params32, cfg32, toks)
+        b = T.prefill_logits(params32, cfg32, toks, impl="xla")
+    diff = (a - b).abs().max().item()
+    same = bool((a.argmax(-1) == b.argmax(-1)).all())
+    print(f"[forward] qwen full f32 B 2 x S 1024: prefill_logits kernels vs "
+          f"impl='xla' max diff {diff:.3e} (bound 1e-3), same argmax {same}")
+    require(diff < 1e-3 and same, "prefill_logits: kernels vs xla differ")
+    fwd_rep["kernel_vs_xla_max_diff"] = diff
+
+    # kernel 3 (whole prompt) against kernel 2 (one position at a time)
+    prompt = torch.randint(0, cfg32.vocab, (1, 64), generator=gen).to(dev)
+    with torch.inference_mode():
+        full = T.prefill_logits(params32, cfg32, prompt)
+        # prefill()'s replay into an f32 cache: the same arithmetic
+        cache = T.init_cache(cfg32, 1, 64, dtype=torch.float32, device=dev)
+        for pos in range(64):
+            last, cache = T.decode_step(params32, cfg32, prompt[:, pos],
+                                        cache, pos)
+        # prefill() itself, into its bf16 cache
+        last_bf16, _ = T.prefill(params32, cfg32, prompt, 64)
+    diff = (full - last).abs().max().item()
+    same = bool((full.argmax(-1) == last.argmax(-1)).all())
+    diff16 = (full - last_bf16).abs().max().item()
+    same16 = bool((full.argmax(-1) == last_bf16.argmax(-1)).all())
+    spread = full.std().item()
+    print(f"[forward] 64-token prompt: prefill_logits vs decode replay (f32 "
+          f"cache) max diff {diff:.3e} (bound 1e-3), same argmax {same}; vs "
+          f"prefill() (bf16 cache) max diff {diff16:.3e} (bound 5% of the "
+          f"logits' std {spread:.3f}), same argmax {same16}")
+    require(diff < 1e-3 and same, "prefill_logits vs decode replay differ")
+    require(diff16 < 0.05 * spread and same16,
+            "prefill_logits vs prefill() differ beyond bf16 cache rounding")
+    fwd_rep.update(replay_f32_cache_max_diff=diff,
+                   replay_bf16_cache_max_diff=diff16, logits_std=spread)
+    del params32, cache
+
+    cfg_h = get_config("hubert-xlarge", "full")
+    params_h = T.init(cfg_h, seed=0, device=dev)
+    frames = randn(1, 1000, cfg_h.d_model, dtype=cfg_h.compute_dtype)
+    reset_launch_counts()
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits, aux = T.forward(params_h, cfg_h, frames)
+        torch.cuda.synchronize()
+        hub_ms = (time.perf_counter() - t0) * 1e3
+    hub_counts = launch_counts()
+    print(f"[forward] hubert-xlarge full bf16 B 1 x S 1000: logits "
+          f"{tuple(logits.shape)}, {hub_ms:.1f} ms (one call, cold), "
+          f"launches {hub_counts}")
+    require(hub_counts["flash_attention"] == 48,
+            f"hubert forward: {hub_counts['flash_attention']} flash launches, "
+            "want 48")
+    require(tuple(logits.shape) == (1, 1000, cfg_h.vocab)
+            and bool(torch.isfinite(logits).all())
+            and all(float(v) == 0.0 for v in aux.values()),
+            "hubert forward: bad logits or aux")
+    fwd_rep["hubert"] = {"launches": hub_counts, "wall_ms_cold": hub_ms}
+    report["forward"] = fwd_rep
+    del params_h, frames, logits
+
+    # 9. card vs CPU, smoke config in f32 ---------------------------------
     cfg = get_config("qwen1.5-0.5b", "smoke").replace(dtype="float32")
     side = {}
     for where in ("cuda", "cpu"):
@@ -402,33 +651,44 @@ def main(argv=None) -> int:
                     params, cfg, torch.tensor([tok], device=where), cache,
                     pos)
                 lg.append(logits.cpu())
-        side[where] = (out, torch.cat(lg))
-    (o_gpu, l_gpu), (o_cpu, l_cpu) = side["cuda"], side["cpu"]
+            toks = torch.from_numpy(rng.integers(0, cfg.vocab, size=(2, 48)))
+            pre = T.prefill_logits(params, cfg, toks.to(where)).cpu()
+        side[where] = (out, torch.cat(lg), pre)
+    (o_gpu, l_gpu, p_gpu), (o_cpu, l_cpu, p_cpu) = side["cuda"], side["cpu"]
     diff = (l_gpu - l_cpu).abs().max().item()
+    pdiff = (p_gpu - p_cpu).abs().max().item()
     print(f"[card/cpu] tokens identical: "
           f"{o_gpu['outputs'] == o_cpu['outputs']}; rounds "
           f"{o_gpu['rounds']} vs {o_cpu['rounds']}; max logit diff "
-          f"{diff:.3e} (bound 1e-3) over {l_gpu.shape[0]} positions")
+          f"{diff:.3e} (bound 1e-3) over {l_gpu.shape[0]} positions; "
+          f"prefill_logits B 2 x S 48 max diff {pdiff:.3e} (bound 1e-3)")
     require(o_gpu["outputs"] == o_cpu["outputs"], "card and CPU tokens differ")
     require(o_gpu["rounds"] == o_cpu["rounds"] and
             o_gpu["modelled_time_s"] == o_cpu["modelled_time_s"],
             "card and CPU compose different rounds")
     require(diff < 1e-3, f"card and CPU logits differ by {diff}")
+    require(pdiff < 1e-3, f"card and CPU prefill logits differ by {pdiff}")
     report["card_vs_cpu"] = {"max_logit_diff": diff,
+                             "prefill_logits_max_diff": pdiff,
                              "positions": int(l_gpu.shape[0])}
 
     # record ----------------------------------------------------------------
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
-                           "src/repro/kernels/rmsnorm.py:26"),
+                           "src/repro/kernels/rmsnorm.py:26",
+                           serve_counts["rmsnorm"]),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
-                                    "src/repro/kernels/decode_attention.py:68")}
+                                    "src/repro/kernels/decode_attention.py:68",
+                                    serve_counts["decode_attention"]),
+               "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
+                                   "src/repro/kernels/flash_attention.py:79",
+                                   prefill_counts["flash_attention"])}
     line = {"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,
-         "launches": counts[nm], "max_abs_err": max(errs[nm]),
+         "launches": n, "max_abs_err": max(errs[nm]),
          "ms": kern[nm]["ms"], "plain_ms": kern[nm]["plain_ms"],
          "bound_ms": kern[nm]["bound_ms"], "bound_by": kern[nm]["bound_by"],
          "library_ms": kern[nm]["library_ms"]}
-        for nm, (src, rep) in sources.items()]}
+        for nm, (src, rep, n) in sources.items()]}
     report["kernels"] = line["kernels"]
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)

@@ -110,4 +110,11 @@ def library() -> ctypes.CDLL:
         ll, ll, ll, ll, ll, ll,     # k strides (b, t, h), v strides
         f, i, i, p]                 # scale, q dtype, kv dtype, stream
     lib.repro_decode_attention.restype = i
+    lib.repro_flash_attention.argtypes = [
+        p, p, p, p,                 # q, k, v, out
+        i, i, i, i, i, i,           # B, S, T, H, Hkv, D
+        ll, ll, ll, ll, ll, ll,     # q strides (b, s, h), k strides
+        ll, ll, ll,                 # v strides
+        f, i, i, i, p]              # scale, causal, window, dtype, stream
+    lib.repro_flash_attention.restype = i
     return lib

@@ -2,7 +2,7 @@
 (``repro.kernels.ops``), minus its ``interpret`` flag: a CPU tensor
 takes the plain version, a CUDA tensor the Hopper kernel.
 
-Flash attention and the Mamba scan are not ported yet (see ROADMAP).
+The Mamba scan is not ported yet (see ROADMAP).
 """
 
 from __future__ import annotations
@@ -10,9 +10,10 @@ from __future__ import annotations
 import torch
 
 from .decode_attention import decode_attention
+from .flash_attention import flash_attention
 from .rmsnorm import rmsnorm_rows
 
-__all__ = ["decode_attention", "rmsnorm"]
+__all__ = ["flash_attention", "decode_attention", "rmsnorm"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,

@@ -1,12 +1,17 @@
-"""Grouped-query attention, decode half (the port of the reference's
-``repro.models.attention`` GQA decode path).
+"""Grouped-query attention (the port of the reference's
+``repro.models.attention`` GQA half).
 
-``GQA.decode`` writes the new token's K/V into its cache slot in place
-and attends through the decode-attention op
-(:func:`repro_torch.kernels.ops.decode_attention`: the Hopper kernel on
-CUDA tensors).  :func:`decode_sdpa` is the plain twin of the
-reference's model-path core, kept for parity checks.  The full-sequence
-``fwd`` (flash attention) and MLA come with later slices.
+``GQA.fwd`` is the full-sequence layer: by default it attends through
+the flash-attention op (:func:`repro_torch.kernels.ops.flash_attention`:
+the Hopper kernel on CUDA tensors); ``impl="xla"`` runs the plain twins
+of the reference's XLA path instead, :func:`sdpa` with
+:func:`causal_mask_bias` up to S = 2048 and :func:`blockwise_sdpa`
+above, exactly the reference's branch.  ``GQA.decode`` writes the new
+token's K/V into its cache slot in place and attends through the
+decode-attention op (:func:`repro_torch.kernels.ops.decode_attention`).
+:func:`decode_sdpa` is the plain twin of the reference's decode core.
+The twins serve parity checks; the kernels are the path on the card.
+MLA comes with a later slice.
 """
 
 from __future__ import annotations
@@ -18,9 +23,108 @@ import torch
 from ..kernels import ops
 from .common import ModelConfig, apply_rope, dense, make_dense, rope_tables
 
-__all__ = ["GQA", "decode_sdpa"]
+__all__ = ["GQA", "sdpa", "blockwise_sdpa", "decode_sdpa",
+           "causal_mask_bias"]
 
 _NEG_INF = -1e30
+
+
+# ---------------------------------------------------------------------------
+# Scaled-dot-product cores (plain twins of the reference's XLA path)
+# ---------------------------------------------------------------------------
+
+def causal_mask_bias(q_len: int, kv_len: int, *, causal: bool,
+                     window: int | None, q_offset: int = 0,
+                     device=None) -> torch.Tensor:
+    """(q_len, kv_len) f32 additive bias implementing causal + sliding
+    window."""
+    qi = torch.arange(q_len, device=device)[:, None] + q_offset
+    ki = torch.arange(kv_len, device=device)[None, :]
+    ok = torch.ones((q_len, kv_len), dtype=torch.bool, device=device)
+    if causal:
+        ok &= ki <= qi
+    if window is not None:
+        ok &= ki > qi - window
+    return torch.where(ok, 0.0, _NEG_INF).float()
+
+
+def sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+         bias: torch.Tensor | None, *, scale: float) -> torch.Tensor:
+    """Scaled-dot-product attention with GQA head grouping, as the
+    reference's ``sdpa`` computes it: f32 scores and softmax, weights
+    rounded to v's dtype for the P.V product.
+
+    q: (B, S, H, Dk)   k: (B, T, Hkv, Dk)   v: (B, T, Hkv, Dv)
+    bias: (S, T) additive or None.
+    """
+    B, S, H, Dk = q.shape
+    Hkv = k.shape[2]
+    qg = q.reshape(B, S, Hkv, H // Hkv, Dk)
+    logits = torch.einsum("bshgd,bthd->bhgst", qg.float(), k.float()) * scale
+    if bias is not None:
+        logits = logits + bias
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgst,bthd->bshgd", w.to(v.dtype), v)
+    return out.reshape(B, S, H, v.shape[-1])
+
+
+def blockwise_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   scale: float, causal: bool, window: int | None,
+                   q_chunk: int = 1024, kv_chunk: int = 1024
+                   ) -> torch.Tensor:
+    """Flash-style online-softmax attention over (q_chunk, kv_chunk)
+    score tiles, as the reference's ``blockwise_sdpa`` computes it
+    (without its sharding constraints: the port has no mesh yet).  For
+    sliding-window attention each query chunk visits a fixed-width KV
+    span (window + q_chunk, rounded up to whole chunks), so the cost is
+    O(S * window)."""
+    B, S, H, Dk = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    Dv = v.shape[-1]
+    while S % q_chunk:
+        q_chunk //= 2
+    while T % kv_chunk:
+        kv_chunk //= 2
+    span = None
+    if window is not None and causal:
+        span = min(T, -(-(window + q_chunk) // kv_chunk) * kv_chunk)
+    blocks = []
+    for q_off in range(0, S, q_chunk):
+        qb = q[:, q_off:q_off + q_chunk].reshape(B, q_chunk, Hkv, g, Dk)
+        if span is not None:
+            kv_start = min(max(q_off + q_chunk - span, 0), T - span)
+            nkv = span // kv_chunk
+        else:
+            kv_start, nkv = 0, T // kv_chunk
+        m = torch.full((B, Hkv, g, q_chunk), _NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros((B, Hkv, g, q_chunk), dtype=torch.float32,
+                        device=q.device)
+        o = torch.zeros((B, Hkv, g, q_chunk, Dv), dtype=torch.float32,
+                        device=q.device)
+        for ki in range(nkv):
+            kv_off = kv_start + ki * kv_chunk
+            kb = k[:, kv_off:kv_off + kv_chunk]
+            vb = v[:, kv_off:kv_off + kv_chunk]
+            s = torch.einsum("bshgd,bthd->bhgst", qb.float(),
+                             kb.float()) * scale
+            bias = causal_mask_bias(q_chunk, kv_chunk, causal=causal,
+                                    window=window, q_offset=q_off - kv_off,
+                                    device=q.device)
+            s = s + bias
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            corr = torch.exp(m - m_new)
+            l = l * corr + p.sum(-1)
+            pv = torch.einsum("bhgst,bthd->bhgsd", p.to(vb.dtype), vb)
+            o = o * corr[..., None] + pv
+            m = m_new
+        o = o / torch.clamp(l, min=1e-30)[..., None]
+        # (B, Hkv, g, qc, Dv) -> (B, qc, H, Dv)
+        blocks.append(o.permute(0, 3, 1, 2, 4).reshape(B, q_chunk, H, Dv)
+                      .to(v.dtype))
+    return torch.cat(blocks, dim=1)
 
 
 def decode_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -67,6 +171,34 @@ class GQA:
         k = dense(p["wk"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
         v = dense(p["wv"], x).reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
         return q, k, v
+
+    @staticmethod
+    def fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor, *, impl: str = "kernel") -> torch.Tensor:
+        """Full-sequence attention layer.  x: (B, S, d); cos/sin: (S,
+        head_dim/2).  ``impl="kernel"`` (the default) attends through
+        ``ops.flash_attention``; ``impl="xla"`` through the plain twins
+        of the reference's XLA path."""
+        B, S, _ = x.shape
+        q, k, v = GQA._qkv(p, cfg, x)
+        if cfg.use_rope:
+            q = apply_rope(q, cos, sin)
+            k = apply_rope(k, cos, sin)
+        scale = 1.0 / math.sqrt(cfg.head_dim)
+        if impl == "kernel":
+            out = ops.flash_attention(q, k, v, causal=cfg.causal,
+                                      window=cfg.sliding_window)
+        elif impl != "xla":
+            raise ValueError(f"impl must be 'kernel' or 'xla', not {impl!r}")
+        elif S > 2048:
+            out = blockwise_sdpa(q, k, v, scale=scale, causal=cfg.causal,
+                                 window=cfg.sliding_window)
+        else:
+            bias = causal_mask_bias(S, S, causal=cfg.causal,
+                                    window=cfg.sliding_window,
+                                    device=x.device)
+            out = sdpa(q, k, v, bias, scale=scale)
+        return dense(p["wo"], out.reshape(B, S, -1))
 
     @staticmethod
     def init_cache(cfg: ModelConfig, batch: int, max_len: int,

@@ -1,6 +1,5 @@
 """Model assembly for dense GQA architectures: embedding -> block stack
--> head, decode path (the port of the reference's
-``repro.models.transformer``).
+-> head (the port of the reference's ``repro.models.transformer``).
 
 Parameters are a plain dict: ``final_norm``, ``embed``, optionally
 ``lm_head``, and ``layers``, one dict per layer in layer order (the
@@ -10,12 +9,18 @@ PyTorch runs eagerly, so the layer loop is a Python loop.
 
 Entry points:
 
-* ``init(cfg, *, seed, device)``                 -> params
-* ``init_cache(cfg, batch, max_len, *, device)`` -> cache
-* ``decode_step(params, cfg, tok, cache, pos)``  -> logits, cache
+* ``init(cfg, *, seed, device)``                   -> params
+* ``forward(params, cfg, batch)``                  -> logits, aux
+* ``forward_features(params, cfg, batch)``         -> features, aux
+* ``prefill_logits(params, cfg, batch)``           -> last logits
+* ``prefill(params, cfg, batch, max_len)``         -> last logits, cache
+* ``init_cache(cfg, batch, max_len, *, device)``   -> cache
+* ``decode_step(params, cfg, tok, cache, pos)``    -> logits, cache
 
-Mamba, xLSTM, MoE and MLA layers, the full-sequence ``forward`` and
-``prefill`` come with later slices; those configs raise
+``forward``, ``forward_features`` and ``prefill_logits`` take ``impl``:
+``"kernel"`` (the default) attends through the flash-attention op,
+``"xla"`` through the plain twins of the reference's XLA path.  Mamba, xLSTM, MoE and MLA
+layers come with later slices; those configs raise
 ``NotImplementedError``.
 """
 
@@ -27,10 +32,11 @@ import torch
 
 from .attention import GQA
 from .common import (ModelConfig, act_fn, dense, init_norm, make_dense,
-                     norm, normal)
+                     norm, normal, rope_tables)
 
-__all__ = ["init", "decode_step", "init_cache", "unit_period",
-           "count_params", "check_supported"]
+__all__ = ["init", "forward", "forward_features", "head_matrix",
+           "prefill_logits", "prefill", "decode_step", "init_cache",
+           "unit_period", "count_params", "check_supported"]
 
 
 # ---------------------------------------------------------------------------
@@ -104,8 +110,27 @@ def _init_layer(gen, cfg: ModelConfig, i: int, dtype, device) -> dict:
     return p
 
 
+def _zero_aux(device) -> dict:
+    return {name: torch.zeros((), dtype=torch.float32, device=device)
+            for name in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
+
+
+def _apply_layer(p: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
+                 impl: str) -> torch.Tensor:
+    """Full-sequence layer.  The reference's also returns the layer's MoE
+    aux terms and recurrent state; every layer of this slice is
+    attention + dense MLP, whose aux terms are zero and which keeps no
+    state."""
+    h = norm(p["norm1"], x, cfg.norm)
+    x = x + GQA.fwd(p["mixer"], cfg, h, cos, sin, impl=impl)
+    if "norm2" in p:
+        h = norm(p["norm2"], x, cfg.norm)
+        x = x + _mlp(p["mlp"], cfg, h)
+    return x
+
+
 # ---------------------------------------------------------------------------
-# Model init
+# Model init / forward
 # ---------------------------------------------------------------------------
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
@@ -155,8 +180,73 @@ def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return logits
 
 
+def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
+    dim = cfg.qk_rope_head_dim if cfg.attn_type == "mla" else cfg.head_dim
+    return rope_tables(positions, dim, cfg.rope_theta)
+
+
+def _stack(params: dict, cfg: ModelConfig, batch,
+           impl: str) -> tuple[torch.Tensor, dict]:
+    """Embedding and every layer: the hidden states before the final
+    norm, and the aux terms (zero for dense layers)."""
+    check_supported(cfg)
+    x = _embed(params, cfg, batch)
+    cos, sin = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
+    for lp in params["layers"]:
+        x = _apply_layer(lp, cfg, x, cos, sin, impl)
+    return x, _zero_aux(x.device)
+
+
+def forward(params: dict, cfg: ModelConfig, batch, *, remat: bool = True,
+            impl: str = "kernel") -> tuple[torch.Tensor, dict]:
+    """Training/eval forward.  batch: (B, S) int tokens or (B, S, d)
+    embeddings -> logits (B, S, vocab) and the aux terms (zero for
+    dense layers).
+
+    ``remat`` is accepted for the reference's signature and has no
+    effect: eager inference keeps no activations for a backward pass
+    (training, ROADMAP item 12, gives it a meaning)."""
+    del remat
+    x, aux = _stack(params, cfg, batch, impl)
+    return _head(params, cfg, x), aux
+
+
+def forward_features(params: dict, cfg: ModelConfig, batch, *,
+                     remat: bool = True, impl: str = "kernel",
+                     unroll: bool = False) -> tuple[torch.Tensor, dict]:
+    """Like :func:`forward` but stops before the LM head, returning the
+    final-norm hidden states (B, S, d), so that a loss head can run
+    chunked.  ``remat`` and ``unroll`` are accepted for the reference's
+    signature and have no effect: the layer loop is always a Python
+    loop, and eager inference keeps no activations for a backward pass
+    (training, ROADMAP item 12, gives ``remat`` a meaning)."""
+    del remat, unroll
+    x, aux = _stack(params, cfg, batch, impl)
+    return norm(params["final_norm"], x, cfg.norm), aux
+
+
+def head_matrix(params: dict, cfg: ModelConfig) -> torch.Tensor:
+    """(d, vocab) projection used by the chunked loss."""
+    if cfg.tie_embeddings:
+        return params["embed"]["w"].T
+    return params["lm_head"]["w"]
+
+
+def prefill_logits(params: dict, cfg: ModelConfig, batch, *,
+                   impl: str = "kernel") -> torch.Tensor:
+    """Serving prefill: run the prompt through the stack and return the
+    LAST position's logits only, (B, vocab); the (B, S, vocab) logits
+    never exist."""
+    x, _ = forward_features(params, cfg, batch, remat=False, impl=impl)
+    last = x[:, -1, :]                      # features are already normed
+    logits = last @ head_matrix(params, cfg).to(last.dtype)
+    if not cfg.tie_embeddings and "b" in params.get("lm_head", {}):
+        logits = logits + params["lm_head"]["b"].to(logits.dtype)
+    return logits
+
+
 # ---------------------------------------------------------------------------
-# KV-cache init / decode
+# KV-cache init / prefill / decode
 # ---------------------------------------------------------------------------
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
@@ -193,6 +283,23 @@ def decode_step(params: dict, cfg: ModelConfig, tok: torch.Tensor,
         x, _ = _decode_layer(lp, cfg, i, x, cache["layers"][i], pos)
     logits = _head(params, cfg, x)
     return logits[:, 0], cache
+
+
+def prefill(params: dict, cfg: ModelConfig, batch,
+            max_len: int) -> tuple[torch.Tensor, dict]:
+    """Run the prompt through the model, returning (last-token logits,
+    cache filled for positions [0, S)).  As in the reference, the prompt
+    is replayed through :func:`decode_step` one position at a time into
+    a fresh bf16 cache, so it runs no full-sequence attention and takes
+    no ``impl``."""
+    B, S = batch.shape[:2]
+    cache = init_cache(cfg, B, max_len, device=batch.device)
+    for s in range(S):
+        tok = batch[:, s]
+        if cfg.input_mode != "tokens":
+            tok = tok[:, None]
+        logits, cache = decode_step(params, cfg, tok, cache, s)
+    return logits, cache
 
 
 def _leaves(tree):

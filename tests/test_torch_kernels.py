@@ -1,10 +1,10 @@
-"""The port's RMSNorm and decode-attention kernels.
+"""The port's RMSNorm, decode-attention and flash-attention kernels.
 
 On the CPU the wrappers run their plain versions, checked here against
 the reference's Pallas kernels (interpret mode) and pure-jnp oracles at
 the reference's tolerances (``tests/test_kernels.py``: f32 2e-5, bf16
 2e-2).  Tests marked ``cuda`` hold the CUDA kernels against their plain
-versions on the card at the shapes of the serving path; they skip where
+versions on the card at the shapes of the serving and forward paths; they skip where
 no CUDA device is present (``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_*.py`` on the card).
 """
@@ -16,6 +16,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
+                                 flash_attention, flash_attention_plain,
                                  launch_counts, ops, reset_launch_counts,
                                  rmsnorm_rows, rmsnorm_rows_plain)
 
@@ -190,7 +191,78 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     torch.testing.assert_close(decode_attention(q, k, v, lens),
                                decode_attention_plain(q, k, v, lens),
                                rtol=0, atol=0)
-    assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0}
+    fq, fk, fv = (torch.from_numpy(a) for a in _flash_inputs(1, 40, 4, 2, 16))
+    torch.testing.assert_close(flash_attention(fq, fk, fv),
+                               flash_attention_plain(fq, fk, fv),
+                               rtol=0, atol=0)
+    assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0,
+                               "flash_attention": 0}
+
+
+# --------------------------------------------------------------------------
+# Flash attention
+# --------------------------------------------------------------------------
+
+def _flash_inputs(B, S, H, Hkv, D, T=None, seed=2):
+    rng = np.random.default_rng(seed)
+    T = S if T is None else T
+    return (rng.standard_normal((B, S, H, D)).astype(np.float32),
+            rng.standard_normal((B, T, Hkv, D)).astype(np.float32),
+            rng.standard_normal((B, T, Hkv, D)).astype(np.float32))
+
+
+def _flash_oracle(ref, jq, jk, jv, causal, window):
+    """``ref.flash_attention_ref`` in the reference's head-flattened
+    layout, with the KV heads repeated as its ``ops`` wrapper does."""
+    jnp = ref.jnp
+    B, S, H, D = jq.shape
+    T = jk.shape[1]
+
+    def flat(x, n):
+        return jnp.repeat(x, H // x.shape[2], 2).transpose(0, 2, 1, 3) \
+            .reshape(B * H, n, D)
+    out = ref.ref.flash_attention_ref(
+        flat(jq, S), flat(jk, T), flat(jv, T), scale=1.0 / np.sqrt(D),
+        causal=causal, window=window)
+    return out.reshape(B, H, S, D).transpose(0, 2, 1, 3)
+
+
+_FLASH_MASKS = [(True, None), (True, 96), (False, None)]
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D", [
+    (1, 128, 2, 2, 64),                  # tests/test_kernels.py shapes
+    (2, 256, 4, 2, 128),
+    (1, 512, 4, 1, 80),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", _FLASH_MASKS)
+def test_flash_attention_plain_matches_reference(ref, B, S, H, Hkv, D, dtype,
+                                                 causal, window):
+    q, k, v = _flash_inputs(B, S, H, Hkv, D)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(ref.jnp, a, dtype)
+                                    for a in (q, k, v))
+    out = ops.flash_attention(tq, tk, tv, causal=causal, window=window)
+    assert out.dtype == tq.dtype and out.shape == tq.shape
+    _close(out, ref.ops.flash_attention(jq, jk, jv, causal=causal,
+                                        window=window, interpret=True), dtype)
+    _close(out, _flash_oracle(ref, jq, jk, jv, causal, window), dtype)
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,T", [
+    (1, 200, 4, 2, 64, 200),     # an S the Pallas kernel cannot take
+    (2, 37, 9, 3, 16, 37),       # starcoder2 smoke grouping, g = 3
+    (1, 61, 6, 1, 20, 61),       # Hkv = 1 and hubert smoke's D = 20
+    (1, 50, 4, 4, 16, 80),       # S < T
+])
+@pytest.mark.parametrize("causal,window", _FLASH_MASKS)
+def test_flash_attention_plain_odd_shapes_match_oracle(ref, B, S, H, Hkv, D,
+                                                       T, causal, window):
+    q, k, v = _flash_inputs(B, S, H, Hkv, D, T)
+    (jq, tq), (jk, tk), (jv, tv) = (_both(ref.jnp, a, "float32")
+                                    for a in (q, k, v))
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    _close(out, _flash_oracle(ref, jq, jk, jv, causal, window), "float32")
 
 
 # --------------------------------------------------------------------------
@@ -236,3 +308,65 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda, B, H, Hkv, T, D,
     torch.testing.assert_close(
         out.float(), decode_attention_plain(tq, tk, tv, tl).float(),
         rtol=tol, atol=tol)
+
+
+_FLASH_CARD_SHAPES = [
+    (1, 128, 2, 2, 64, 128),     # tests/test_kernels.py shapes
+    (2, 256, 4, 2, 128, 256),
+    (1, 512, 4, 1, 80, 512),
+    (1, 1000, 16, 16, 80, 1000),  # hubert width, odd S
+    (2, 200, 4, 2, 64, 200),     # odd S, tail tiles
+    (1, 1, 4, 4, 64, 1),         # one position
+    (2, 37, 9, 3, 16, 37),       # starcoder2 smoke, g = 3
+    (1, 61, 6, 1, 20, 61),       # g = 6, Hkv = 1, D = 20 (padded)
+    (1, 70, 36, 1, 128, 70),     # g = 36: three head groups
+    (1, 50, 4, 4, 16, 80),       # S < T
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,S,H,Hkv,D,T", _FLASH_CARD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("causal,window", _FLASH_MASKS + [(True, 1),
+                                                          (False, 33)])
+def test_flash_attention_kernel_matches_plain_on_card(cuda, B, S, H, Hkv, D,
+                                                      T, dtype, causal,
+                                                      window):
+    dt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(cuda, dt)
+                  for a in _flash_inputs(B, S, H, Hkv, D, T))
+    before = flash_attention.launches
+    out = flash_attention(tq, tk, tv, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert out.shape == tq.shape and out.dtype == dt
+    tol = _TOL[dtype]
+    torch.testing.assert_close(
+        out.float(), flash_attention_plain(tq, tk, tv, causal=causal,
+                                           window=window).float(),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_flash_attention_reads_strided_views_on_card(cuda):
+    """q, k and v as views into one fused (B, S, H + 2 Hkv, D) tensor
+    give the same result as their contiguous copies."""
+    B, S, H, Hkv, D = 2, 130, 8, 2, 64
+    g = torch.Generator().manual_seed(0)
+    qkv = torch.randn(B, S, H + 2 * Hkv, D, generator=g).to(cuda)
+    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+    a = flash_attention(q, k, v)
+    b = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_flash_attention_raises_on_shapes_it_does_not_take(cuda):
+    q = torch.zeros(1, 8, 2, 256, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)                       # D > 128
+    q = torch.zeros(1, 8, 2, 64, device=cuda)
+    with pytest.raises(ValueError):
+        flash_attention(q, q[:, :4], q[:, :4])         # S > T
+    with pytest.raises(TypeError):
+        flash_attention(q, q.bfloat16(), q.bfloat16())  # mixed dtypes

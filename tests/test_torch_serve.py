@@ -215,7 +215,8 @@ def test_entry_points_default_to_cuda():
                  lambda: serve_main(["--variant", "smoke"])):
         with pytest.raises((AssertionError, RuntimeError)):
             call()
-    assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0}
+    assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0,
+                               "flash_attention": 0}
 
 
 # --------------------------------------------------------------------------
