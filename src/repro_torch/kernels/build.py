@@ -117,4 +117,13 @@ def library() -> ctypes.CDLL:
         ll, ll, ll,                 # v strides
         f, i, i, i, p]              # scale, causal, window, dtype, stream
     lib.repro_flash_attention.restype = i
+    lib.repro_event_scan.argtypes = [
+        p, p, p, p, p, p, p, p,     # rows, nbk, dem, inst, mem, caps, out, err
+        i, i, i, i, i, i, i, i,     # B, n, K, D, U, C, max_resident, sat_idx
+        ll,                         # max events per row (<= 0: the budget)
+        f, f, f, f, f, f,           # rates, saturations, fit slack, retire eps
+        p]                          # stream
+    lib.repro_event_scan.restype = i
+    lib.repro_event_scan_smem.argtypes = [i, i, i, i]
+    lib.repro_event_scan_smem.restype = ll
     return lib

@@ -25,8 +25,10 @@ __all__ = ["main", "serve"]
 def serve(arch: str, *, variant: str = "smoke", n_requests: int = 8,
           policy: str = "symbiotic", max_len: int = 96,
           max_new_tokens: int = 8, seed: int = 0,
-          device="cuda") -> dict:
-    """Serve ``n_requests`` seeded random prompts; the stats of
+          device="cuda", **policy_kw) -> dict:
+    """Serve ``n_requests`` seeded random prompts with the
+    :class:`SchedulerPolicy` of kind ``policy`` (``policy_kw`` sets its
+    other fields, such as ``refine_model``); the stats of
     :meth:`ServingEngine.run` plus ``wall_s`` (synchronised on a CUDA
     device) and ``prompt_tokens``."""
     cfg = get_config(arch, variant)
@@ -41,7 +43,7 @@ def serve(arch: str, *, variant: str = "smoke", n_requests: int = 8,
         reqs.append(Request(i, rng.integers(0, cfg.vocab, size=plen),
                             max_new_tokens=max_new_tokens))
     eng = ServingEngine(cfg, params, max_len=max_len,
-                        policy=SchedulerPolicy(kind=policy))
+                        policy=SchedulerPolicy(kind=policy, **policy_kw))
     eng.submit(reqs)
     t0 = time.perf_counter()
     stats = eng.run()
@@ -58,7 +60,7 @@ def main(argv=None) -> int:
     ap.add_argument("--variant", default="smoke", choices=["smoke", "full"])
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--policy", default="symbiotic",
-                    choices=["fifo", "symbiotic"])
+                    choices=["fifo", "symbiotic", "refined"])
     ap.add_argument("--max-len", type=int, default=96)
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--device", default="cuda")

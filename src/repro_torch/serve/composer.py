@@ -8,8 +8,11 @@ Algorithm 1 greedy, the arrival-order cost-model guard, and the
 :class:`ScheduleCache` replay / warm-start paths.  It owns no queue and
 runs nothing: the engine keeps the step loop and exact execution.
 
-Refinement (``kind="refined"``) and the dependency-aware DAG path come
-with later slices.
+``kind="refined"`` polishes Algorithm 1's flat order by local search
+(:func:`repro_torch.core.refine.refine_order`) under the policy's
+``refine_model`` and re-rounds it by capacity; the refinement runs on
+the host in float64, as in the reference.  The dependency-aware DAG
+path comes with a later slice.
 """
 
 from __future__ import annotations
@@ -18,6 +21,7 @@ from collections import deque
 
 from ..core import Schedule
 from ..core.fastscore import greedy_order_fast, warm_start_insert
+from ..core.refine import refine_order
 from ..core.tpu import fifo_rounds, round_time
 from ..obs import DriftMonitor, QualityAuditor
 from .cache import ScheduleCache
@@ -36,11 +40,6 @@ class Composer:
 
     def __init__(self, policy, device, weights_bytes: float,
                  cache: ScheduleCache, recorder=None):
-        if policy.kind == "refined":
-            raise NotImplementedError(
-                "kind='refined' needs core.refine and core.simulator, "
-                "which are not ported yet (ROADMAP: 'Host scheduler "
-                "core' and the event-scan kernel)")
         self.policy = policy
         self.device = device
         self.weights_bytes = weights_bytes
@@ -143,6 +142,8 @@ class Composer:
                         return self.cache_store(key, result, items, sigs)
         profs = [t[0].profile() for t in items]
         sched: Schedule = greedy_order_fast(profs, self.device)
+        if self.policy.kind == "refined":
+            return self.refined(sched, by_name, key, items, sigs)
         composed = [[by_name[p.name] for p in rd.kernels]
                     for rd in sched.rounds]
         # Cost-model guard: Algorithm 1 is profile-greedy; never accept
@@ -161,6 +162,43 @@ class Composer:
             result = composed
         self._note("schedule", path="flat",
                    served=("fifo" if t_fifo < t_alg else "cold"),
+                   rounds=len(result))
+        return self.cache_store(key, result, items, sigs)
+
+    def refined(self, sched: Schedule, by_name, key, items, sigs):
+        """Local search over Algorithm 1's flat order, re-rounded by
+        greedy capacity packing (:func:`fifo_rounds`).  ``refine_model``
+        "event" / "round" refine under the core simulator,
+        delta-evaluated (suffix re-simulation from cached admission
+        checkpoints, or batched with ``refine_backend="batched"``);
+        "rounds" re-rounds every candidate under the round cost
+        model."""
+        policy = self.policy
+        with self.cache.metrics.timer("phase_refine"):
+            if policy.refine_model in ("event", "round"):
+                order, _, _ = refine_order(
+                    sched.order, self.device, model=policy.refine_model,
+                    budget=policy.refine_budget,
+                    neighborhood=policy.neighborhood,
+                    batch_size=(policy.refine_batch
+                                if policy.refine_backend == "batched"
+                                else None),
+                    metrics=self.cache.metrics)
+            else:
+                def tfn(order_profs):
+                    its = [by_name[p.name][0] for p in order_profs]
+                    return sum(round_time(r, self.device, self.weights_bytes)
+                               for r in fifo_rounds(its, self.device))
+
+                order, _, _ = refine_order(
+                    sched.order, self.device, time_fn=tfn,
+                    budget=policy.refine_budget,
+                    neighborhood=policy.neighborhood,
+                    metrics=self.cache.metrics)
+        its = [by_name[p.name][0] for p in order]
+        result = [[by_name[it.name] for it in rd]
+                  for rd in fifo_rounds(its, self.device)]
+        self._note("schedule", path="flat", served="refined",
                    rounds=len(result))
         return self.cache_store(key, result, items, sigs)
 

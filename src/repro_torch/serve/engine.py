@@ -52,10 +52,20 @@ class Request:
 
 @dataclass
 class SchedulerPolicy:
-    kind: str = "symbiotic"               # fifo | symbiotic
+    kind: str = "symbiotic"               # fifo | symbiotic | refined
+    refine_budget: int = 200
+    #: local-search move set for kind="refined" (see
+    #: repro_torch.core.refine)
+    neighborhood: str = "auto"
     #: Schedule the per-layer dependency graph instead of flat
     #: per-request items (not ported yet: raises).
     respect_deps: bool = False
+    #: objective for kind="refined": "rounds" re-rounds every candidate
+    #: under the TPU round cost model (weight stream charged once per
+    #: round); "event" / "round" refine the flat launch order under the
+    #: corresponding core simulator, delta-evaluated by the
+    #: checkpointing :class:`repro_torch.core.refine.DeltaEvaluator`.
+    refine_model: str = "rounds"
     #: ScheduleCache: reuse round compositions across steps whose
     #: work-item mix is equivalent (decode kv-lens bucketized).
     cache: bool = True
@@ -84,6 +94,17 @@ class SchedulerPolicy:
     audit_k: int = 50
     audit_floor: float = 90.0
     audit_seed: int = 0
+    #: Move-evaluation backend for the refinement passes: "host" is
+    #: the sequential delta evaluator; "batched" scores the move
+    #: neighborhood in vectorized ``(B, n)`` NumPy passes
+    #: (:func:`repro_torch.core.batched.refine_order_batched`) with
+    #: exact re-verification before any acceptance — same budget
+    #: accounting, same result currency.  Only ``refine_model`` "event"
+    #: and "round" use it.
+    refine_backend: str = "host"
+    #: Candidate batch per vectorized pass when
+    #: ``refine_backend="batched"``.
+    refine_batch: int = 128
 
 
 def _param_device(params) -> torch.device:

@@ -1,9 +1,12 @@
-"""The port's RMSNorm, decode-attention and flash-attention kernels.
+"""The port's RMSNorm, decode-attention, flash-attention and event-scan
+kernels.
 
 On the CPU the wrappers run their plain versions, checked here against
 the reference's Pallas kernels (interpret mode) and pure-jnp oracles at
 the reference's tolerances (``tests/test_kernels.py``: f32 2e-5, bf16
-2e-2).  Tests marked ``cuda`` hold the CUDA kernels against their plain
+2e-2); the event scan's plain version against the reference's scans
+and both packages' float64 oracles within ``F32_EVENT_RTOL`` (relative).
+Tests marked ``cuda`` hold the CUDA kernels against their plain
 versions on the card at the shapes of the serving and forward paths; they skip where
 no CUDA device is present (``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_*.py`` on the card).
@@ -15,10 +18,13 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.seeded import scan_table
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
-                                 flash_attention, flash_attention_plain,
-                                 launch_counts, ops, reset_launch_counts,
-                                 rmsnorm_rows, rmsnorm_rows_plain)
+                                 event_scan, event_times, event_times_plain,
+                                 event_times_reference, flash_attention,
+                                 flash_attention_plain, launch_counts, ops,
+                                 reset_launch_counts, rmsnorm_rows,
+                                 rmsnorm_rows_plain)
 
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -195,8 +201,12 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     torch.testing.assert_close(flash_attention(fq, fk, fv),
                                flash_attention_plain(fq, fk, fv),
                                rtol=0, atol=0)
+    table = scan_table("gpu8")
+    rows = _scan_rows(table, 3)
+    torch.testing.assert_close(event_times(rows, table),
+                               event_times_plain(rows, table), rtol=0, atol=0)
     assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "event_scan": 0}
 
 
 # --------------------------------------------------------------------------
@@ -370,3 +380,151 @@ def test_flash_attention_raises_on_shapes_it_does_not_take(cuda):
         flash_attention(q, q[:, :4], q[:, :4])         # S > T
     with pytest.raises(TypeError):
         flash_attention(q, q.bfloat16(), q.bfloat16())  # mixed dtypes
+
+
+# --------------------------------------------------------------------------
+# Event scan
+# --------------------------------------------------------------------------
+
+#: the seeded tables of ``repro_torch.core.seeded`` the tests hold.
+_SCAN_NAMES = ("gpu8", "gpu16", "gpu24", "oversized", "serving")
+
+
+def _scan_rows(table, B, seed=0):
+    rng = np.random.default_rng(seed)
+    n = len(table.kernels)
+    return torch.from_numpy(np.stack([rng.permutation(n) for _ in range(B)])
+                            .astype(np.int32))
+
+
+@pytest.fixture
+def ref_core():
+    """The reference's ``core`` and its event scan (imported here: the
+    card-only tests below do not need JAX)."""
+    pytest.importorskip("jax")
+    import repro.core as RC
+    import repro.core.tpu  # noqa: F401  (RC.tpu)
+    from repro.kernels import event_scan as RES
+    return SimpleNamespace(C=RC, es=RES)
+
+
+@pytest.mark.parametrize("name", list(_SCAN_NAMES))
+def test_event_times_plain_matches_reference(ref_core, name):
+    """The plain scan against the reference's Pallas kernel (interpret
+    mode), its jit(vmap) scan and both packages' float64 oracles."""
+    table, rtable = scan_table(name), scan_table(name, ref_core.C)
+    rows = _scan_rows(table, 6)
+    got = event_times_plain(rows, table).numpy()
+    assert got.dtype == np.float32 and got.shape == (6,)
+    oracle = event_times_reference(rows, table)
+    ref_oracle = ref_core.es.event_times_reference(rows.numpy(), rtable)
+    assert np.array_equal(oracle, ref_oracle)       # float64, bit for bit
+    rtol = event_scan.F32_EVENT_RTOL
+    np.testing.assert_allclose(got, oracle, rtol=rtol, atol=0)
+    np.testing.assert_allclose(
+        got, ref_core.es.event_times_jax(rows.numpy(), rtable), rtol=rtol,
+        atol=0)
+    np.testing.assert_allclose(
+        got, ref_core.es.event_times_pallas(rows.numpy(), rtable,
+                                            interpret=True),
+        rtol=rtol, atol=0)
+
+
+def test_event_scan_constants_match_reference(ref_core):
+    assert event_scan.F32_EVENT_RTOL == ref_core.es.F32_EVENT_RTOL
+    assert event_scan.F32_FIT_RTOL == ref_core.es.F32_FIT_RTOL
+    assert event_scan._RETIRE_EPS == ref_core.es._RETIRE_EPS
+    for name in ("gpu8", "serving"):
+        table, rtable = scan_table(name), scan_table(name, ref_core.C)
+        assert tuple(event_scan.config_for_device(table.device)) == \
+            tuple(ref_core.es.config_for_device(rtable.device))
+        for a, b in zip(event_scan._pack_f32(table),
+                        ref_core.es._pack_f32(rtable)):
+            assert a.dtype == b.dtype and np.array_equal(a, b)
+
+
+@pytest.mark.parametrize("name", list(_SCAN_NAMES))
+def test_event_scan_cohort_slot_cap(name):
+    """C = min(max_resident, n * max grid) slots per unit: never fewer
+    than the cohorts any unit holds in the float64 simulation (its
+    checkpoints), and the serving device's 4,096 cut to n."""
+    table = scan_table(name)
+    nbk = event_scan._pack_f32(table)[0]
+    n, dev = len(table.kernels), table.device
+    C = event_scan.cohort_slots(n, nbk, dev.max_resident)
+    assert C == min(dev.max_resident, n * int(nbk.max()))
+    if name == "serving":
+        assert dev.max_resident == 4096 and C == n
+    from repro_torch.core.refine import _FastEventSim
+    sim = _FastEventSim(dev)
+    for row in _scan_rows(table, 4).tolist():
+        _, cps = sim.simulate([table.kernels[i] for i in row], record=True)
+        most = max(len(cohorts) for cp in cps for _, _, cohorts in cp.units)
+        assert most <= C
+
+
+@pytest.mark.parametrize("name", ["gpu8", "oversized", "serving"])
+def test_event_scan_work_counts(name):
+    """The plain version's counts, which the scan's operations bound is
+    built from: every block of a fitting kernel admitted once, each
+    oversized head drained once, and a first fit that tests at least
+    the winning unit and at most every unit, plus one failed attempt per
+    admission burst."""
+    table = scan_table(name)
+    rows = _scan_rows(table, 16, seed=3)
+    work = {}
+    event_times_plain(rows, table, work=work)
+    nbk = event_scan._pack_f32(table)[0]
+    dev = table.device
+    U = dev.n_units
+    alone = np.array([all(k.demands[d] <= dev.cap(d) for d in dev.caps)
+                      for k in table.kernels])
+    assert work["admissions"] == int((nbk * alone)[rows.numpy()].sum())
+    assert work["solo"] == int((~alone)[rows.numpy()].sum())
+    bursts = work["completions"] + work["solo"] + rows.shape[0]
+    assert work["admissions"] <= work["tested_units"] \
+        <= U * (work["admissions"] + bursts)
+    assert 0 < work["unit_events"] <= work["slot_events"]
+    assert work["unit_events"] <= U * work["completions"]
+
+
+def test_event_scan_budget_and_bad_rows_raise():
+    table = scan_table("gpu8")
+    rows = _scan_rows(table, 2)
+    with pytest.raises(RuntimeError, match="budget"):
+        event_times_plain(rows, table, max_events=3)
+    with pytest.raises(ValueError):
+        event_times(rows + 100, table)
+    with pytest.raises(TypeError):
+        event_times(rows.float(), table)
+    assert event_times(rows[:0], table).shape == (0,)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", list(_SCAN_NAMES))
+def test_event_scan_kernel_matches_plain_on_card(cuda, name):
+    table = scan_table(name)
+    rows = _scan_rows(table, 512).to(cuda)
+    before = event_times.launches
+    out = event_times(rows, table)
+    torch.cuda.synchronize()
+    assert event_times.launches == before + 1
+    assert out.dtype == torch.float32 and out.shape == (512,)
+    rtol = event_scan.F32_EVENT_RTOL
+    torch.testing.assert_close(out, event_times_plain(rows, table),
+                               rtol=rtol, atol=0)
+    oracle = event_times_reference(rows[:32], table)
+    np.testing.assert_allclose(out[:32].cpu().numpy(), oracle, rtol=rtol,
+                               atol=0)
+
+
+@pytest.mark.cuda
+def test_event_scan_kernel_overrun_and_bad_rows_raise_on_card(cuda):
+    table = scan_table("gpu16")
+    rows = _scan_rows(table, 8).to(cuda)
+    with pytest.raises(RuntimeError, match="budget"):
+        event_times(rows, table, max_events=3)
+    with pytest.raises(RuntimeError, match="outside the table"):
+        event_times(rows + 100, table)
+    torch.testing.assert_close(event_times(rows.long(), table),
+                               event_times(rows, table), rtol=0, atol=0)

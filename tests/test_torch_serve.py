@@ -187,10 +187,37 @@ def test_engine_matches_reference(smoke_f32, monkeypatch, scenario, kind):
         assert out["schedule_cache"]["warm_hits"] >= 1
 
 
+@pytest.mark.parametrize("refine_backend", ["host", "batched"])
+@pytest.mark.parametrize("refine_model", ["rounds", "event", "round"])
+def test_refined_engine_matches_reference(smoke_f32, monkeypatch,
+                                          refine_model, refine_backend):
+    """kind="refined" under every objective and move backend: rounds,
+    modelled time and cache counters bit-equal, tokens equal (the warm
+    scenario: a request joins at iteration 2)."""
+    monkeypatch.setattr(ref_attention, "decode_sdpa", kernel_decode_sdpa)
+    cfg_ref, params, cfg, port = smoke_f32
+    kw = dict(kind="refined", refine_model=refine_model,
+              refine_backend=refine_backend)
+    reqs, arr = _scenario(RRequest, "warm")
+    ref_eng = REngine(cfg_ref, params, max_len=32, policy=RPolicy(**kw))
+    ref_eng.submit(reqs)
+    ref = ref_eng.run(arrivals=arr)
+    reqs, arr = _scenario(Request, "warm")
+    eng = ServingEngine(cfg, port, max_len=32, policy=SchedulerPolicy(**kw))
+    eng.submit(reqs)
+    out = eng.run(arrivals=arr)
+    assert out["rounds"] == ref["rounds"]
+    assert out["modelled_time_s"] == ref["modelled_time_s"]
+    assert out["schedule_cache"] == ref["schedule_cache"]
+    assert out["outputs"] == ref["outputs"]
+    assert out["phases"]["refine"]["calls"] >= 1
+    for knob in ("refine_budget", "neighborhood", "refine_model",
+                 "refine_backend", "refine_batch"):
+        assert getattr(SchedulerPolicy(), knob) == getattr(RPolicy(), knob)
+
+
 def test_unported_policies_raise(smoke_f32):
     _, _, cfg, port = smoke_f32
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, port, policy=SchedulerPolicy(kind="refined"))
     with pytest.raises(NotImplementedError):
         ServingEngine(cfg, port, policy=SchedulerPolicy(respect_deps=True))
 
@@ -200,6 +227,17 @@ def test_serve_on_cpu_when_asked():
                   max_new_tokens=3, device="cpu")
     assert all(len(t) == 3 for t in stats["outputs"].values())
     assert stats["prompt_tokens"] > 0 and stats["modelled_time_s"] > 0
+
+
+def test_serve_cli_refined_on_cpu(capsys):
+    assert serve_main(["--policy", "refined", "--device", "cpu",
+                       "--requests", "3", "--max-len", "32",
+                       "--max-new-tokens", "3"]) == 0
+    assert "policy=refined" in capsys.readouterr().out
+    stats = serve("qwen1.5-0.5b", n_requests=3, max_len=32, max_new_tokens=3,
+                  policy="refined", refine_model="event",
+                  refine_backend="batched", device="cpu")
+    assert all(len(t) == 3 for t in stats["outputs"].values())
 
 
 def test_entry_points_default_to_cuda():
@@ -216,7 +254,7 @@ def test_entry_points_default_to_cuda():
         with pytest.raises((AssertionError, RuntimeError)):
             call()
     assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0,
-                               "flash_attention": 0}
+                               "flash_attention": 0, "event_scan": 0}
 
 
 # --------------------------------------------------------------------------
@@ -240,6 +278,10 @@ def _imported_modules(path):
 def test_port_imports_neither_jax_nor_repro():
     files = _port_files()
     assert len(files) > 20 and files[-1].is_file()
+    port = _ROOT / "src" / "repro_torch"
+    for mod in ("core/simulator.py", "core/refine.py", "core/batched.py",
+                "core/experiments.py", "kernels/event_scan.py"):
+        assert port / mod in files, mod
     bad = [(p.relative_to(_ROOT), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
