@@ -11,8 +11,9 @@ al. (arXiv 2409.02227), this module evaluates **B candidate orders per
 dispatch**:
 
 * :func:`pair_score_matrix_batched` — the ScoreGen pair matrix in
-  float32 in PyTorch on an explicit ``device`` (the CPU by default;
-  packed once per :class:`~repro_torch.core.fastscore.ProfileTable`),
+  float32 in PyTorch on ``device`` (the card unless the caller asks
+  for the CPU; packed once per
+  :class:`~repro_torch.core.fastscore.ProfileTable`),
   with the NumPy float32 path kept and a documented tolerance audit
   (:func:`audit_pair_scores`) against the float64 reference.  The
   greedy itself keeps consuming the float64 matrix — its tie-breaking
@@ -177,9 +178,10 @@ def _torch_pack(table: ProfileTable, device: torch.device) -> dict:
 
 
 def pair_score_matrix_batched(table: ProfileTable, backend: str = "auto",
-                              device="cpu") -> np.ndarray:
+                              device="cuda") -> np.ndarray:
     """Full pairwise ScoreGen matrix in float32 in PyTorch on
-    ``device`` (``backend="auto"``), equal to the float64
+    ``device`` (``backend="auto"``; the card unless the caller asks for
+    the CPU), equal to the float64
     ``pair_score_matrix`` within :data:`F32_SCORE_RTOL`.
     ``backend="numpy"`` is the reference's host path, kept as its
     bit-for-bit twin — same arithmetic, same dtype.  Returns a NumPy
@@ -205,8 +207,8 @@ def pair_score_matrix_batched(table: ProfileTable, backend: str = "auto",
     return out.cpu().numpy()
 
 
-def audit_pair_scores(table: ProfileTable,
-                      backend: str = "auto") -> dict:
+def audit_pair_scores(table: ProfileTable, backend: str = "auto",
+                      device="cuda") -> dict:
     """Tolerance audit of the f32 score matrix against the float64
     reference: returns max absolute/relative error and whether both
     stay within :data:`F32_SCORE_RTOL` (relative to the score scale).
@@ -215,7 +217,7 @@ def audit_pair_scores(table: ProfileTable,
     the documented contract of the batched scoring path."""
     from .fastscore import pair_score_matrix
     ref = pair_score_matrix(table)
-    f32 = pair_score_matrix_batched(table, backend=backend)
+    f32 = pair_score_matrix_batched(table, backend=backend, device=device)
     err = np.abs(f32.astype(np.float64) - ref)
     scale = max(float(np.max(np.abs(ref))), 1.0)
     max_abs = float(np.max(err)) if err.size else 0.0

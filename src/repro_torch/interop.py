@@ -5,8 +5,9 @@ stacked along a leading ``(reps,)`` axis (``T.init`` builds them with
 ``vmap``).  :func:`params_from_numpy` takes that tree with NumPy
 leaves — the caller runs ``jax.tree.map(np.asarray, params)`` — and
 returns the port's layout: one dict per layer, in layer order, weights
-in the config's compute dtype and norm parameters in float32.  Nothing
-here imports JAX.
+in the config's compute dtype and the leaves the reference keeps in
+float32 (norm parameters, the MoE router, Mamba's non-projection
+leaves) in float32.  Nothing here imports JAX.
 """
 
 from __future__ import annotations
@@ -21,9 +22,16 @@ from .models.common import ModelConfig
 
 __all__ = ["params_from_numpy"]
 
-#: leaves that stay float32 (norm scales and norm biases); dense
-#: weights ``w`` and biases ``b`` take the compute dtype
-_F32_LEAVES = ("scale", "bias")
+#: path suffixes of the leaves that stay float32: norm scales and norm
+#: biases, the MoE router's weight (routing runs in f32) and Mamba's
+#: conv, dt bias, A and skip leaves; other leaves (dense ``w`` and ``b``,
+#: the experts) take the compute dtype
+_F32_PATHS = (("scale",), ("bias",), ("router", "w"), ("conv_w",),
+              ("conv_b",), ("dt_bias",), ("a_log",), ("d_skip",))
+
+
+def _is_f32(path: tuple[str, ...]) -> bool:
+    return any(path[-len(s):] == s for s in _F32_PATHS)
 
 
 def _index(tree, r: int):
@@ -32,9 +40,10 @@ def _index(tree, r: int):
     return tree[r]
 
 
-def _convert(tree, dtype: torch.dtype, device, key: str | None = None):
+def _convert(tree, dtype: torch.dtype, device, path: tuple[str, ...] = ()):
     if isinstance(tree, dict):
-        return {k: _convert(v, dtype, device, k) for k, v in tree.items()}
+        return {k: _convert(v, dtype, device, path + (k,))
+                for k, v in tree.items()}
     a = np.asarray(tree)
     if a.dtype.name == "bfloat16":      # ml_dtypes bf16: no torch view
         a = a.astype(np.float32)
@@ -42,7 +51,7 @@ def _convert(tree, dtype: torch.dtype, device, key: str | None = None):
         # Read-only arrays (as from a JAX array) are copied just below.
         warnings.simplefilter("ignore", UserWarning)
         t = torch.from_numpy(a)
-    dt = torch.float32 if key in _F32_LEAVES else dtype
+    dt = torch.float32 if _is_f32(path) else dtype
     return t.to(device=device, dtype=dt, copy=True)
 
 
@@ -51,7 +60,7 @@ def params_from_numpy(tree: dict, cfg: ModelConfig, *,
     """The reference's parameter tree (NumPy leaves) -> the port's."""
     T.check_supported(cfg)
     dt = cfg.compute_dtype
-    out = {k: _convert(v, dt, device) for k, v in tree.items()
+    out = {k: _convert(v, dt, device, (k,)) for k, v in tree.items()
            if k not in ("prefix", "stack")}
     layers = [_convert(lp, dt, device) for lp in tree["prefix"]]
     prefix, period = T.unit_period(cfg)

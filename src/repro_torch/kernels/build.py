@@ -126,4 +126,10 @@ def library() -> ctypes.CDLL:
     lib.repro_event_scan.restype = i
     lib.repro_event_scan_smem.argtypes = [i, i, i, i]
     lib.repro_event_scan_smem.restype = ll
+    lib.repro_mamba_scan.argtypes = [
+        p, p, p, p, p, p, p,        # x, dt, bm, cm, a, d, y
+        i, i, i, i,                 # B, T, Dc, S
+        ll, ll, ll, ll,             # bm strides (b, t), cm strides (b, t)
+        i, p]                       # dtype, stream
+    lib.repro_mamba_scan.restype = i
     return lib

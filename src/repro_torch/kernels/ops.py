@@ -1,8 +1,7 @@
 """Public kernel entry points with the reference's signatures
 (``repro.kernels.ops``), minus its ``interpret`` flag: a CPU tensor
 takes the plain version, a CUDA tensor the Hopper kernel.
-
-The Mamba scan is not ported yet (see ROADMAP).
+``mamba_scan(x, dt, bm, cm, a, d_skip)`` is the selective scan.
 """
 
 from __future__ import annotations
@@ -11,9 +10,10 @@ import torch
 
 from .decode_attention import decode_attention
 from .flash_attention import flash_attention
+from .mamba_scan import mamba_scan
 from .rmsnorm import rmsnorm_rows
 
-__all__ = ["flash_attention", "decode_attention", "rmsnorm"]
+__all__ = ["flash_attention", "decode_attention", "rmsnorm", "mamba_scan"]
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, *,

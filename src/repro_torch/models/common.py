@@ -119,10 +119,11 @@ class ModelConfig:
 
 def normal(gen: torch.Generator, shape: tuple[int, ...], scale: float,
            dtype: torch.dtype, device) -> torch.Tensor:
-    """``scale`` times a standard normal draw from ``gen`` (a CPU
-    generator, so one seed gives the same weights on every device),
-    stored in ``dtype`` on ``device``."""
-    w = torch.randn(shape, generator=gen, dtype=torch.float32)
+    """``scale`` times a standard normal draw from ``gen``, made on the
+    generator's device (a CPU generator gives the same weights on every
+    device), stored in ``dtype`` on ``device``."""
+    w = torch.randn(shape, generator=gen, dtype=torch.float32,
+                    device=gen.device)
     return w.mul_(scale).to(device=device, dtype=dtype)
 
 

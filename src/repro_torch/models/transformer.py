@@ -1,5 +1,5 @@
-"""Model assembly for dense GQA architectures: embedding -> block stack
--> head (the port of the reference's ``repro.models.transformer``).
+"""Model assembly: embedding -> patterned block stack -> head (the port
+of the reference's ``repro.models.transformer``).
 
 Parameters are a plain dict: ``final_norm``, ``embed``, optionally
 ``lm_head``, and ``layers``, one dict per layer in layer order (the
@@ -17,11 +17,13 @@ Entry points:
 * ``init_cache(cfg, batch, max_len, *, device)``   -> cache
 * ``decode_step(params, cfg, tok, cache, pos)``    -> logits, cache
 
+A layer's mixer is GQA attention or a Mamba block (jamba), and its
+feed-forward a dense MLP or an MoE layer (``cfg.is_moe_layer``).
 ``forward``, ``forward_features`` and ``prefill_logits`` take ``impl``:
-``"kernel"`` (the default) attends through the flash-attention op,
-``"xla"`` through the plain twins of the reference's XLA path.  Mamba, xLSTM, MoE and MLA
-layers come with later slices; those configs raise
-``NotImplementedError``.
+``"kernel"`` (the default) attends through the flash-attention op and
+scans through the selective-scan op, ``"xla"`` runs the plain twins of
+the reference's XLA path instead.  MLA and xLSTM layers come with later
+slices; those configs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -33,6 +35,8 @@ import torch
 from .attention import GQA
 from .common import (ModelConfig, act_fn, dense, init_norm, make_dense,
                      norm, normal, rope_tables)
+from .moe import MoE
+from .ssm import Mamba
 
 __all__ = ["init", "forward", "forward_features", "head_matrix",
            "prefill_logits", "prefill", "decode_step", "init_cache",
@@ -42,6 +46,9 @@ __all__ = ["init", "forward", "forward_features", "head_matrix",
 # ---------------------------------------------------------------------------
 # Layer plumbing
 # ---------------------------------------------------------------------------
+
+_MIXERS = {"attn": GQA, "mamba": Mamba}
+
 
 def _has_ff(cfg: ModelConfig, i: int) -> bool:
     kind = cfg.layer_kind(i)
@@ -65,20 +72,17 @@ def unit_period(cfg: ModelConfig) -> tuple[int, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configs outside this slice: dense GQA only."""
+    """Raise for configs outside the ported slices: MLA attention and
+    xLSTM layers."""
     if cfg.attn_type != "gqa":
         raise NotImplementedError(
             f"{cfg.name}: MLA attention is not ported yet (ROADMAP: "
             "'MoE and MLA: mixtral and deepseek')")
     for i in range(cfg.n_layers):
-        if cfg.layer_kind(i) != "attn":
+        if cfg.layer_kind(i) not in _MIXERS:
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.layer_kind(i)} layers are not ported "
                 "yet (ROADMAP: 'The other seven archs')")
-        if cfg.is_moe_layer(i):
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers are not ported yet (ROADMAP: "
-                "'MoE and MLA: mixtral and deepseek')")
 
 
 def _init_mlp(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -103,10 +107,14 @@ def _mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _init_layer(gen, cfg: ModelConfig, i: int, dtype, device) -> dict:
     p = {"norm1": init_norm(cfg.d_model, cfg.norm, device),
-         "mixer": GQA.init(gen, cfg, dtype=dtype, device=device)}
+         "mixer": _MIXERS[cfg.layer_kind(i)].init(gen, cfg, dtype=dtype,
+                                                  device=device)}
     if _has_ff(cfg, i):
         p["norm2"] = init_norm(cfg.d_model, cfg.norm, device)
-        p["mlp"] = _init_mlp(gen, cfg, dtype, device)
+        if cfg.is_moe_layer(i):
+            p["moe"] = MoE.init(gen, cfg, dtype=dtype, device=device)
+        else:
+            p["mlp"] = _init_mlp(gen, cfg, dtype, device)
     return p
 
 
@@ -115,34 +123,50 @@ def _zero_aux(device) -> dict:
             for name in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
 
 
-def _apply_layer(p: dict, cfg: ModelConfig, x: torch.Tensor, cos, sin,
-                 impl: str) -> torch.Tensor:
-    """Full-sequence layer.  The reference's also returns the layer's MoE
-    aux terms and recurrent state; every layer of this slice is
-    attention + dense MLP, whose aux terms are zero and which keeps no
-    state."""
+def _apply_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor, cos,
+                 sin, impl: str) -> tuple[torch.Tensor, dict]:
+    """Full-sequence layer -> (x, aux terms: zero but for MoE layers).
+    The reference's also returns a state slot, which it leaves empty."""
+    aux = _zero_aux(x.device)
     h = norm(p["norm1"], x, cfg.norm)
-    x = x + GQA.fwd(p["mixer"], cfg, h, cos, sin, impl=impl)
+    if cfg.layer_kind(i) == "attn":
+        y = GQA.fwd(p["mixer"], cfg, h, cos, sin, impl=impl)
+    else:
+        y = Mamba.fwd(p["mixer"], cfg, h, impl=impl)
+    x = x + y
     if "norm2" in p:
         h = norm(p["norm2"], x, cfg.norm)
-        x = x + _mlp(p["mlp"], cfg, h)
-    return x
+        if "moe" in p:
+            y, aux = MoE.fwd(p["moe"], cfg, h)
+        else:
+            y = _mlp(p["mlp"], cfg, h)
+        x = x + y
+    return x, aux
+
+
+def _add_aux(a: dict, b: dict) -> dict:
+    return {k: a[k] + b[k] for k in a}
 
 
 # ---------------------------------------------------------------------------
 # Model init / forward
 # ---------------------------------------------------------------------------
 
-def init(cfg: ModelConfig, *, seed: int = 0, device="cuda") -> dict:
+def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
+         draw_device="cpu") -> dict:
     """Seeded random weights with the reference's shapes and scales.
 
-    The draws come from a CPU ``torch.Generator``, so one seed gives the
-    same weights on every device (they are not the reference's
-    ``jax.random`` numbers: tests convert the reference's own weights
-    with :func:`repro_torch.interop.params_from_numpy`).  Weights are
-    stored in the compute dtype, norm parameters in float32."""
+    The draws come from a ``torch.Generator`` on ``draw_device``: the
+    CPU's by default, so one seed gives the same weights on every device
+    (they are not the reference's ``jax.random`` numbers: tests convert
+    the reference's own weights with
+    :func:`repro_torch.interop.params_from_numpy`); ``"cuda"`` draws a
+    full-width model on the card in seconds, with other numbers.
+    Weights are stored in the compute dtype; norm parameters, the MoE
+    router and Mamba's ``a_log``, ``conv_*``, ``dt_bias`` and ``d_skip``
+    in float32, as the reference keeps them."""
     check_supported(cfg)
-    gen = torch.Generator().manual_seed(seed)
+    gen = torch.Generator(device=draw_device).manual_seed(seed)
     dt = cfg.compute_dtype
     kw = {"dtype": dt, "device": device}
     params: dict = {"final_norm": init_norm(cfg.d_model, cfg.norm, device)}
@@ -188,20 +212,34 @@ def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
 def _stack(params: dict, cfg: ModelConfig, batch,
            impl: str) -> tuple[torch.Tensor, dict]:
     """Embedding and every layer: the hidden states before the final
-    norm, and the aux terms (zero for dense layers)."""
+    norm, and the aux terms summed over the layers in the reference's
+    order (prefix layers one by one; then each unit's layers, and the
+    units' sums over the repetitions)."""
     check_supported(cfg)
     x = _embed(params, cfg, batch)
     cos, sin = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
-    for lp in params["layers"]:
-        x = _apply_layer(lp, cfg, x, cos, sin, impl)
-    return x, _zero_aux(x.device)
+    prefix, period = unit_period(cfg)
+    aux_tot = _zero_aux(x.device)
+    units = []
+    for i, lp in enumerate(params["layers"]):
+        x, aux = _apply_layer(lp, cfg, i, x, cos, sin, impl)
+        if i < prefix:
+            aux_tot = _add_aux(aux_tot, aux)
+            continue
+        if (i - prefix) % period == 0:
+            units.append(_zero_aux(x.device))
+        units[-1] = _add_aux(units[-1], aux)
+    if units:
+        aux_tot = {k: aux_tot[k] + torch.stack([u[k] for u in units]).sum()
+                   for k in aux_tot}
+    return x, aux_tot
 
 
 def forward(params: dict, cfg: ModelConfig, batch, *, remat: bool = True,
             impl: str = "kernel") -> tuple[torch.Tensor, dict]:
     """Training/eval forward.  batch: (B, S) int tokens or (B, S, d)
-    embeddings -> logits (B, S, vocab) and the aux terms (zero for
-    dense layers).
+    embeddings -> logits (B, S, vocab) and the aux terms (MoE's
+    load-balance, z and drop fraction, summed over the layers).
 
     ``remat`` is accepted for the reference's signature and has no
     effect: eager inference keeps no activations for a backward pass
@@ -251,22 +289,27 @@ def prefill_logits(params: dict, cfg: ModelConfig, batch, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, *, device="cuda") -> dict:
-    """One ``{"k", "v"}`` cache per layer.  bf16 by default whatever
-    ``cfg.dtype`` is, as in the reference."""
+    """One cache per layer, by kind: ``{"k", "v"}`` for attention,
+    ``{"conv", "ssm"}`` for Mamba.  bf16 by default whatever
+    ``cfg.dtype`` is, as in the reference (Mamba's ssm state is f32)."""
     check_supported(cfg)
-    return {"layers": [GQA.init_cache(cfg, batch, max_len, dtype,
-                                      device=device)
-                       for _ in range(cfg.n_layers)]}
+    return {"layers": [_MIXERS[cfg.layer_kind(i)].init_cache(
+        cfg, batch, max_len, dtype, device=device)
+        for i in range(cfg.n_layers)]}
 
 
 def _decode_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
                   c: dict, pos: int) -> tuple[torch.Tensor, dict]:
     h = norm(p["norm1"], x, cfg.norm)
-    y, c = GQA.decode(p["mixer"], cfg, h, c, pos)
+    y, c = _MIXERS[cfg.layer_kind(i)].decode(p["mixer"], cfg, h, c, pos)
     x = x + y
     if "norm2" in p:
         h = norm(p["norm2"], x, cfg.norm)
-        x = x + _mlp(p["mlp"], cfg, h)
+        if "moe" in p:
+            y, _ = MoE.fwd(p["moe"], cfg, h)
+        else:
+            y = _mlp(p["mlp"], cfg, h)
+        x = x + y
     return x, c
 
 

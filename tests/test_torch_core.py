@@ -285,7 +285,7 @@ def test_pair_score_matrix_batched_torch_cpu(maker, seed):
         <= PB.F32_SCORE_RTOL * scale
     assert np.array_equal(host, RB.pair_score_matrix_batched(
         tables["ref"], backend="numpy"))
-    audit = PB.audit_pair_scores(tables["port"])
+    audit = PB.audit_pair_scores(tables["port"], device="cpu")
     assert audit["within_tol"] and audit["rtol"] == RB.F32_SCORE_RTOL
     with pytest.raises(ValueError):
         PB.pair_score_matrix_batched(tables["port"], backend="jax")

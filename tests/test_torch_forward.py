@@ -307,4 +307,5 @@ def test_cpu_forward_counts_no_launch():
     with torch.inference_mode():
         PT.prefill_logits(port, cfg, tb)
     assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0,
-                               "flash_attention": 0, "event_scan": 0}
+                               "flash_attention": 0, "event_scan": 0,
+                               "mamba_scan": 0}

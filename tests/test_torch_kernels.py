@@ -1,5 +1,5 @@
-"""The port's RMSNorm, decode-attention, flash-attention and event-scan
-kernels.
+"""The port's RMSNorm, decode-attention, flash-attention, event-scan and
+selective-scan kernels.
 
 On the CPU the wrappers run their plain versions, checked here against
 the reference's Pallas kernels (interpret mode) and pure-jnp oracles at
@@ -22,7 +22,8 @@ from repro_torch.core.seeded import scan_table
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  event_scan, event_times, event_times_plain,
                                  event_times_reference, flash_attention,
-                                 flash_attention_plain, launch_counts, ops,
+                                 flash_attention_plain, launch_counts,
+                                 mamba_scan, mamba_scan_plain, ops,
                                  reset_launch_counts, rmsnorm_rows,
                                  rmsnorm_rows_plain)
 
@@ -205,8 +206,12 @@ def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     rows = _scan_rows(table, 3)
     torch.testing.assert_close(event_times(rows, table),
                                event_times_plain(rows, table), rtol=0, atol=0)
+    ms = [torch.from_numpy(a) for a in _scan_inputs(1, 9, 16, 4)]
+    torch.testing.assert_close(mamba_scan(*ms), mamba_scan_plain(*ms),
+                               rtol=0, atol=0)
     assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0,
-                               "flash_attention": 0, "event_scan": 0}
+                               "flash_attention": 0, "event_scan": 0,
+                               "mamba_scan": 0}
 
 
 # --------------------------------------------------------------------------
@@ -528,3 +533,131 @@ def test_event_scan_kernel_overrun_and_bad_rows_raise_on_card(cuda):
         event_times(rows + 100, table)
     torch.testing.assert_close(event_times(rows.long(), table),
                                event_times(rows, table), rtol=0, atol=0)
+
+
+# --------------------------------------------------------------------------
+# Mamba selective scan
+# --------------------------------------------------------------------------
+
+def _scan_inputs(B, T, Dc, S, seed=6):
+    """The reference's test_mamba_scan recipe, from numpy: x, dt =
+    softplus(N) / 10, bm, cm, a = -exp(0.3 N) and d, all f32."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((B, T, Dc))
+    dt = np.logaddexp(rng.standard_normal((B, T, Dc)), 0.0) * 0.1
+    bm = rng.standard_normal((B, T, S))
+    cm = rng.standard_normal((B, T, S))
+    a = -np.exp(rng.standard_normal((Dc, S)) * 0.3)
+    d = rng.standard_normal(Dc)
+    return [v.astype(np.float32) for v in (x, dt, bm, cm, a, d)]
+
+
+#: the reference's test_mamba_scan shapes, and T, Dc and S that are no
+#: powers of two
+_SCAN_SHAPES = [(1, 64, 32, 8), (2, 128, 64, 16), (2, 100, 48, 12)]
+
+
+@pytest.mark.parametrize("B,T,Dc,S", _SCAN_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_plain_matches_reference(ref, B, T, Dc, S, dtype):
+    """The plain version against ``ref.mamba_scan_ref`` and the Pallas
+    kernel (interpret mode), at the reference test's tolerances doubled
+    as it doubles them (f32 4e-5, bf16 4e-2)."""
+    x, dt, bm, cm, a, d = _scan_inputs(B, T, Dc, S)
+    (jx, tx), (jdt, tdt), (jb, tb), (jc, tc) = (
+        _both(ref.jnp, v, dtype) for v in (x, dt, bm, cm))
+    ja, jd = ref.jnp.asarray(a), ref.jnp.asarray(d)
+    out = mamba_scan_plain(tx, tdt, tb, tc, torch.from_numpy(a),
+                           torch.from_numpy(d))
+    assert out.dtype == getattr(torch, dtype) and out.shape == (B, T, Dc)
+    tol = 2 * _TOL[dtype]
+    for want in (ref.ref.mamba_scan_ref(jx, jdt, jb, jc, ja, jd),
+                 ref.ops.mamba_scan(jx, jdt, jb, jc, ja, jd,
+                                    interpret=True)):
+        np.testing.assert_allclose(out.float().numpy(),
+                                   np.asarray(want, np.float32), rtol=tol,
+                                   atol=tol)
+    torch.testing.assert_close(
+        ops.mamba_scan(tx, tdt, tb, tc, torch.from_numpy(a),
+                       torch.from_numpy(d)), out, rtol=0, atol=0)
+
+
+#: the CPU shapes, chip_smoke's (B 2, T 1000, Dc 256, S 16), one row of
+#: jamba's width, and S = 1 and S = 32, the ends of the range
+_SCAN_CARD_SHAPES = _SCAN_SHAPES + [(2, 1000, 256, 16), (1, 300, 8192, 16),
+                                    (1, 70, 40, 1), (2, 70, 24, 32)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,T,Dc,S", _SCAN_CARD_SHAPES)
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_matches_plain_on_card(cuda, B, T, Dc, S, dtype):
+    x, dt, bm, cm, a, d = (torch.from_numpy(v).to(cuda)
+                           for v in _scan_inputs(B, T, Dc, S))
+    dt_ = getattr(torch, dtype)
+    x, dt, bm, cm = (v.to(dt_) for v in (x, dt, bm, cm))
+    reset_launch_counts()
+    out = mamba_scan(x, dt, bm, cm, a, d)
+    torch.cuda.synchronize()
+    assert launch_counts()["mamba_scan"] == 1
+    tol = 2 * _TOL[dtype]
+    torch.testing.assert_close(out, mamba_scan_plain(x, dt, bm, cm, a, d),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_reads_strided_b_and_c_on_card(cuda):
+    """bm and cm as the model passes them: slices of one projection."""
+    x, dt, bm, cm, a, d = (torch.from_numpy(v).to(cuda)
+                           for v in _scan_inputs(2, 150, 64, 16))
+    dbc = torch.cat([torch.zeros_like(bm[..., :5]), bm, cm], dim=-1)
+    got = mamba_scan(x, dt, dbc[..., 5:21], dbc[..., 21:], a, d)
+    torch.testing.assert_close(got, mamba_scan(x, dt, bm, cm, a, d),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_mamba_scan_raises_on_inputs_it_does_not_take(cuda):
+    x, dt, bm, cm, a, d = (torch.from_numpy(v).to(cuda)
+                           for v in _scan_inputs(1, 16, 32, 8))
+    with pytest.raises(TypeError):
+        mamba_scan(x, dt, bm, cm, a.bfloat16(), d)
+    with pytest.raises(TypeError):
+        mamba_scan(x.bfloat16(), dt, bm, cm, a, d)
+    with pytest.raises(ValueError):
+        mamba_scan(x, dt[:, :8], bm, cm, a, d)
+    with pytest.raises(ValueError):
+        mamba_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, bm,
+                   cm, a, d)
+    with pytest.raises(ValueError):
+        mamba_scan(x, dt, bm, cm, a.t().contiguous().t(), d)
+    with pytest.raises(ValueError):
+        mamba_scan(x, dt, bm, cm, a, d.cpu())
+    big = torch.zeros(1, 16, 33, device=cuda)
+    with pytest.raises(ValueError):
+        mamba_scan(x, dt, big, big, torch.zeros(32, 33, device=cuda), d)
+
+
+@pytest.mark.cuda
+def test_jamba_smoke_forward_kernels_match_xla_on_card(cuda):
+    """The seeded f32 jamba smoke model on the card: the forward through
+    the scan and flash kernels against ``impl="xla"`` (TF32 off), with
+    one scan launch per Mamba layer and one flash launch."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("jamba-v0.1-52b", "smoke").replace(dtype="float32")
+    params = T.init(cfg, seed=0, device=cuda)
+    toks = torch.from_numpy(np.random.default_rng(5).integers(
+        0, cfg.vocab, size=(2, 100))).to(cuda)
+    reset_launch_counts()
+    with torch.inference_mode():
+        a, aux_a = T.forward(params, cfg, toks)
+        counts = launch_counts()
+        b, aux_b = T.forward(params, cfg, toks, impl="xla")
+    n_mamba = sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.n_layers))
+    assert counts["mamba_scan"] == n_mamba == 7
+    assert counts["flash_attention"] == 1
+    assert (a - b).abs().max().item() < 1e-3
+    for k in aux_a:
+        assert abs(float(aux_a[k]) - float(aux_b[k])) < 1e-5

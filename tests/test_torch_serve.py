@@ -247,14 +247,21 @@ def test_entry_points_default_to_cuda():
         pytest.skip("a CUDA device is present")
     reset_launch_counts()
     cfg = get_config("qwen1.5-0.5b", "smoke")
+    jamba = get_config("jamba-v0.1-52b", "smoke")
+    table = PC.ProfileTable.build(PC.experiment("EP-6-shm"), PC.GTX580)
     for call in (lambda: PT.init(cfg),
                  lambda: PT.init_cache(cfg, 1, 8),
+                 lambda: PT.init(jamba),
+                 lambda: PT.init_cache(jamba, 1, 8),
                  lambda: serve("qwen1.5-0.5b", variant="smoke"),
-                 lambda: serve_main(["--variant", "smoke"])):
+                 lambda: serve_main(["--variant", "smoke"]),
+                 lambda: PC.pair_score_matrix_batched(table),
+                 lambda: PC.audit_pair_scores(table)):
         with pytest.raises((AssertionError, RuntimeError)):
             call()
     assert launch_counts() == {"rmsnorm": 0, "decode_attention": 0,
-                               "flash_attention": 0, "event_scan": 0}
+                               "flash_attention": 0, "event_scan": 0,
+                               "mamba_scan": 0}
 
 
 # --------------------------------------------------------------------------
