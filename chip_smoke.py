@@ -9,15 +9,19 @@ no phase catches its own failure:
 1. device   — the card's name and count, and ``nvidia-smi``'s name and
               power limit;
 2. build    — the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
-              ``sm_90a``), with the compiler's register/spill report;
+              ``sm_90a``), with the compiler's register/spill report, the
+              flash kernels' kernel by kernel: the bf16 (wgmma) ones must
+              not spill;
 3. kernels  — each kernel against its plain PyTorch version on the card,
               within f32 2e-5 / bf16 2e-2 (the reference's
               ``tests/test_kernels.py``): RMSNorm at the serving path's
               row and the forward's 32,768 rows, decode attention at the
               serving path's shapes and a GQA shape, flash attention at
               qwen's, a windowed GQA and hubert's (odd S) shapes and, in
-              bf16, at the prefill phase's B 8 x S 4096 and B 1 x S 32768
-              (the latter held one head at a time); the event scan on
+              bf16, at qwen's prefill shapes B 8 x S 4096 and B 1 x S
+              32768 (the latter held one head at a time) and jamba's
+              (8, 4096, 32 heads over 8, D 128; one KV head at a time);
+              the event scan on
               4,096 random orders of seeded GTX580 tables (n 8, 16, 24,
               64, and oversized blocks), every row against the plain
               version and 256 against the float64 oracle, within
@@ -30,8 +34,9 @@ no phase catches its own failure:
 4. times    — CUDA-event times at the paths' shapes: kernel, plain
               version, one library call computing the same function
               (yardstick only; the port never calls it), and the bound;
-              flash attention at the three shapes above and at prefill's
-              B 8 x S 4096; the event scan at n 64 x 4,096 orders and at
+              flash attention at the three shapes above, at qwen's
+              prefill B 8 x S 4096 and at jamba's, with SDPA beside it;
+              the event scan at n 64 x 4,096 orders and at
               EpBsEsSw-8's 40,320, with the host ``BatchedEventSim`` as
               its yardstick (no single PyTorch call computes it); the
               selective scan at B 1 and B 8 x T 4096 x Dc 8192 x S 16
@@ -48,7 +53,7 @@ no phase catches its own failure:
               seeded weights) at B 8 x S 4096 and B 1 x S 32768: exactly
               24 flash-attention and 49 RMSNorm launches per call, finite
               logits, wall ms per call, prompt tokens/s, peak memory, and
-              a profiled call (flash's device time per launch);
+              a profiled call (flash's device time per launch and share);
 8. forward  — on qwen at full width in f32 (TF32 off), ``prefill_logits``
               through the kernels against ``impl="xla"``, and against a
               decode replay of a 64-token prompt (kernel 3 against
@@ -77,7 +82,7 @@ no phase catches its own failure:
               B 1 x S 4096 and B 8 x S 4096, exactly 7 selective-scan, 1
               flash-attention and 17 RMSNorm launches per call, finite
               logits, ms per call, prompt tokens/s, peak memory and a
-              profiled call each;
+              profiled call each (the scan's and flash's device shares);
 13. serve-jamba — the same model through ``ServingEngine`` on §5's
               requests (policy symbiotic, ``max_len`` 512, 32 new
               tokens): every request finishes, 17 RMSNorm and 1
@@ -98,6 +103,7 @@ from __future__ import annotations
 import argparse
 import itertools
 import json
+import re
 import subprocess
 import sys
 import time
@@ -446,6 +452,26 @@ def main(argv=None) -> int:
         for line in log.read_text().splitlines():
             if "Used" in line or "spill" in line:
                 print(f"[build]   {line.strip()}")
+        # the flash kernel's -Xptxas -v report, kernel by kernel; the bf16
+        # (wgmma) kernels must not spill
+        text = log.read_text()
+        text = text[text.index("== flash_attention.cu"):]
+        text = text[:text.find("\n== ", 1) % (len(text) + 1)]
+        flash_ptxas = re.findall(
+            r"Compiling entry function '\w*?"
+            r"(flash_attention_(?:wgmma_)?kernelI(?:Li\d+E)+).*?"
+            r"\n\s*(\d+ bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads)\s*\nptxas info\s*: (Used [^\n]*)",
+            text, re.S)
+        require(any("wgmma" in k[0] for k in flash_ptxas),
+                "build.log: no report for the flash wgmma kernel")
+        for kname, frame, st, ld, used in flash_ptxas:
+            print(f"[build]   flash {kname}: {used}; {frame}")
+            require("wgmma" not in kname or st == ld == "0",
+                    f"build.log: {kname} spills ({frame})")
+        serial = text.count("wgmma.mma_async instructions are serialized")
+        print(f"[build]   flash: {serial} ptxas note(s) of serialised wgmma")
+        report["flash_ptxas"] = [list(k) for k in flash_ptxas]
     report["build_s"] = build_s
 
     # 3. kernels vs plain on the card ------------------------------------
@@ -504,22 +530,28 @@ def main(argv=None) -> int:
                     flash_attention_plain(q, k, v, causal=causal,
                                           window=window),
                     dt, errs["flash_attention"])
-    # the prefill path's two shapes (§7), bf16.  B 8 x S 4096 in one plain
-    # call (8.6 GB of f32 scores); B 1 x S 32768 (512 query tiles, KV walks
-    # up to 512 tiles) in one kernel call, held one head at a time against
-    # the plain version on that head's strided views (4.3 GB of scores)
-    for B, S in ((8, 4096), (1, spec_32k.seq_len)):
-        q, k, v = (randn(B, S, 16, 64, dtype=torch.bfloat16)
-                   for _ in range(3))
-        step = 16 if S <= 4096 else 1   # heads per plain call
-        want = torch.cat([flash_attention_plain(q[:, :, h:h + step],
+    # the prefill paths' shapes, bf16: qwen's two (§7) and jamba's B 8 x
+    # S 4096 at D 128, g 4 (§12).  qwen B 8 in one plain call (8.6 GB of
+    # f32 scores); B 1 x S 32768 (512 query tiles, KV walks up to 512
+    # tiles) in one kernel call, held one head at a time against the plain
+    # version on that head's strided views (4.3 GB of scores); jamba one KV
+    # head (four query heads) at a time (2.1 GB)
+    for B, S, H, Hkv, D in ((8, 4096, 16, 16, 64),
+                            (1, spec_32k.seq_len, 16, 16, 64),
+                            (8, 4096, 32, 8, 128)):
+        q = randn(B, S, H, D, dtype=torch.bfloat16)
+        k, v = (randn(B, S, Hkv, D, dtype=torch.bfloat16) for _ in range(2))
+        step = Hkv if H * S <= 16 * 4096 else 1   # KV heads per plain call
+        g = H // Hkv
+        want = torch.cat([flash_attention_plain(q[:, :, g * h:g * (h + step)],
                                                 k[:, :, h:h + step],
                                                 v[:, :, h:h + step])
-                          for h in range(0, 16, step)], dim=2)
-        compare(f"flash_attention B={B} S={S} H=16 Hkv=16 D=64 causal=True "
-                f"window=None {torch.bfloat16} (prefill's shape; plain "
-                f"{step} head(s) per call)", flash_attention(q, k, v),
-                want, torch.bfloat16, errs["flash_attention"])
+                          for h in range(0, Hkv, step)], dim=2)
+        compare(f"flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} "
+                f"causal=True window=None {torch.bfloat16} (a prefill "
+                f"shape; plain {step} KV head(s) per call)",
+                flash_attention(q, k, v), want, torch.bfloat16,
+                errs["flash_attention"])
         del q, k, v, want
     print("[kernels] event scan vs plain and the float64 oracle (relative "
           "error of the makespan)")
@@ -616,7 +648,8 @@ def main(argv=None) -> int:
             "library_ms": lib, "bound_ms": a_bound, "bound_by": a_by,
             "shape": f"q (1, 16, 64) bf16, cache (1, 512, 16, 64) bf16, L={L}"}
     kern["decode_attention"] = att[128]
-    # flash attention at the shapes of §3 and prefill's B 8; SDPA gets its
+    # flash attention at the shapes of §3, qwen's prefill B 8 and jamba's
+    # (no plain time there: 17 GB of f32 scores in one call); SDPA gets its
     # own (B, H, S, D) layout, the KV heads repeated to H and the window as
     # a boolean mask, ready-made, so its time has none of that in it
     flash_t = {}
@@ -624,7 +657,8 @@ def main(argv=None) -> int:
             "qwen": (1, 4096, 16, 16, 64, True, None),
             "qwen_B8": (8, 4096, 16, 16, 64, True, None),
             "gqa_window": (1, 2048, 32, 8, 128, True, 1024),
-            "hubert": (1, 1000, 16, 16, 80, False, None)}.items():
+            "hubert": (1, 1000, 16, 16, 80, False, None),
+            "jamba": (8, 4096, 32, 8, 128, True, None)}.items():
         q = randn(B, S, H, D, dtype=torch.bfloat16)
         k, v = (randn(B, S, Hkv, D, dtype=torch.bfloat16) for _ in range(2))
         qt = q.transpose(1, 2).contiguous()
@@ -642,9 +676,9 @@ def main(argv=None) -> int:
         flash_t[key] = {
             "ms": timed(f"flash_attention.{key}",
                         lambda: flash_attention(q, k, v, **kw), n=20, warm=3),
-            "plain_ms": timed(f"flash_attention.{key}.plain",
-                              lambda: flash_attention_plain(q, k, v, **kw),
-                              n=5, warm=2),
+            "plain_ms": None if key == "jamba" else timed(
+                f"flash_attention.{key}.plain",
+                lambda: flash_attention_plain(q, k, v, **kw), n=5, warm=2),
             "library_ms": timed(
                 f"flash_attention.{key}.sdpa",
                 lambda: F.scaled_dot_product_attention(
@@ -728,8 +762,10 @@ def main(argv=None) -> int:
                      ("decode_attention L=512", att[512])] + [
                         (f"flash_attention {key} (n 20, plain n 5)", t)
                         for key, t in flash_t.items()]:
+        plain = ("not timed" if t["plain_ms"] is None
+                 else f"{t['plain_ms']:.5f} ms")
         print(f"[times] {label}: kernel {t['ms']:.5f} ms, plain "
-              f"{t['plain_ms']:.5f} ms, library {t['library_ms']:.5f} ms, "
+              f"{plain}, library {t['library_ms']:.5f} ms, "
               f"bound {t['bound_ms']:.3e} ms ({t['bound_by']}) "
               f"[{t['shape']}]")
     for key, t in scan_t.items():
@@ -1177,6 +1213,10 @@ def main(argv=None) -> int:
         require(sum(r[2] for r in sc) == 7,
                 f"profile: scan launches {[(r[0][:40], r[2]) for r in sc]}")
         scan_us = sum(r[1] for r in sc)
+        fl = [r for r in rows if "flash_attention" in r[0]]
+        require(sum(r[2] for r in fl) == 1,
+                f"profile: flash launches {[(r[0][:40], r[2]) for r in fl]}")
+        flash_us = sum(r[1] for r in fl)
         busy_us = sum(r[1] for r in rows)
         ms = float(np.median(walls[1:])) * 1e3
         rep = {"B": B, "S": S, "wall_ms_median_of_3": ms,
@@ -1187,6 +1227,8 @@ def main(argv=None) -> int:
                "device_busy_ms": busy_us / 1e3,
                "mamba_scan_device_us_per_launch": scan_us / 7,
                "mamba_scan_share_of_device_time": scan_us / busy_us,
+               "flash_device_us": flash_us,
+               "flash_share_of_device_time": flash_us / busy_us,
                "top": [{"name": n[:80], "device_us": t, "calls": c}
                        for n, t, c in rows[:10]]}
         jamba_rep[f"B{B}xS{S}"] = rep
@@ -1200,7 +1242,9 @@ def main(argv=None) -> int:
               f"device busy {busy_us / 1e3:.1f} ms, selective scan "
               f"{scan_us / 7:.1f} us per launch x7 "
               f"({rep['mamba_scan_share_of_device_time']:.1%} of device "
-              "time); top device kernels:")
+              f"time), flash attention {flash_us:.1f} us x1 "
+              f"({rep['flash_share_of_device_time']:.1%}); top device "
+              "kernels:")
         for r in rep["top"][:8]:
             print(f"[jamba]     {r['device_us'] / 1e3:9.3f} ms x{r['calls']:<4d}"
                   f" {r['name']}")

@@ -115,7 +115,8 @@ def library() -> ctypes.CDLL:
         i, i, i, i, i, i,           # B, S, T, H, Hkv, D
         ll, ll, ll, ll, ll, ll,     # q strides (b, s, h), k strides
         ll, ll, ll,                 # v strides
-        f, i, i, i, p]              # scale, causal, window, dtype, stream
+        f, i, i,                    # scale, causal, window
+        i, i, i, p]                 # plan G, P (bf16), dtype, stream
     lib.repro_flash_attention.restype = i
     lib.repro_event_scan.argtypes = [
         p, p, p, p, p, p, p, p,     # rows, nbk, dem, inst, mem, caps, out, err

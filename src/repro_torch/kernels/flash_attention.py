@@ -8,9 +8,12 @@ bound by operations: it reads q in its ``(B, S, H, D)`` layout and k/v
 in ``(B, T, Hkv, D)`` in place through their strides, serves the g query
 heads of one KV head from each K/V tile it stages, bounds the KV walk of
 every query tile by the causal diagonal and the sliding window, and
-masks the tails, so any S and T are taken.  bf16 inputs run both
-products on the tensor cores (``mma.sync``), f32 inputs on the f32 FMA
-units.  The source note in the ``.cu`` file has the details.
+masks the tails, so any S and T are taken.  bf16 inputs run on Hopper's
+machinery: TMA loads into a ring of K/V stages guarded by mbarriers, a
+producer warp and two consumer warpgroups on ``wgmma``, over 128-row
+query tiles planned by :func:`flash_plan`; f32 inputs run both products
+on the f32 FMA units.  The source note in the ``.cu`` file has the
+details.
 
 Both versions keep the softmax weights in f32 for the P.V product, as
 the TPU kernel and ``ref.flash_attention_ref`` do.  The output is in
@@ -25,17 +28,45 @@ kernel's launches.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
 
 from .build import library
 
-__all__ = ["flash_attention", "flash_attention_plain"]
+__all__ = ["FlashPlan", "flash_attention", "flash_attention_plain",
+           "flash_plan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
 _MAX_D = 128
+_TILE_ROWS = 128    # (position, head) rows of a bf16 block
+_MAX_GROUP = 16     # query heads of one KV head per block
+
+
+class FlashPlan(NamedTuple):
+    """The bf16 kernel's block map: block ``(x, y)`` serves batch
+    ``x // (Hkv * ngroups)``, KV head ``x // ngroups % Hkv``, query heads
+    ``kv_head * g + (x % ngroups) * G`` onward (G of them) and positions
+    ``(ntiles - 1 - y) * P`` onward (P of them, fewer at the end of S);
+    row ``r < P * G`` of the block is position ``r // G``, head ``r % G``
+    of those."""
+    G: int
+    P: int
+    ngroups: int
+    ntiles: int
+
+
+def flash_plan(S: int, H: int, Hkv: int) -> FlashPlan:
+    """Heads per group G: the largest power of two, at most 16, that
+    divides g = H / Hkv, so that no group is partial (a TMA box of G
+    heads never reaches another KV head's rows) and the tile of
+    P = 128 // G positions fills all 128 rows."""
+    g = H // Hkv
+    G = min(g & -g, _MAX_GROUP)
+    P = _TILE_ROWS // G
+    return FlashPlan(G, P, g // G, -(-S // P))
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -121,11 +152,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         q, k, v = (F.pad(t, (0, 8 - D % 8)) for t in (q, k, v))
     _check_layout(q, k, v)
     out = torch.empty((B, S, H, q.shape[3]), dtype=q.dtype, device=q.device)
+    plan = flash_plan(S, H, Hkv)     # the f32 kernel plans its own tiles
     rc = library().repro_flash_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, S, T, H,
         Hkv, q.shape[3], *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-        scale, int(causal), window or 0, _DTYPE_CODES[q.dtype],
-        torch.cuda.current_stream().cuda_stream)
+        scale, int(causal), window or 0, plan.G, plan.P,
+        _DTYPE_CODES[q.dtype], torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"flash attention kernel launch failed: CUDA "
                            f"error {rc}")

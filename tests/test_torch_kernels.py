@@ -17,12 +17,15 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+from hypothesis import given, settings
+from hypothesis import strategies as st
 
 from repro_torch.core.seeded import scan_table
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  event_scan, event_times, event_times_plain,
                                  event_times_reference, flash_attention,
-                                 flash_attention_plain, launch_counts,
+                                 flash_attention_plain, flash_plan,
+                                 launch_counts,
                                  mamba_scan, mamba_scan_plain, ops,
                                  reset_launch_counts, rmsnorm_rows,
                                  rmsnorm_rows_plain)
@@ -334,9 +337,44 @@ _FLASH_CARD_SHAPES = [
     (1, 1, 4, 4, 64, 1),         # one position
     (2, 37, 9, 3, 16, 37),       # starcoder2 smoke, g = 3
     (1, 61, 6, 1, 20, 61),       # g = 6, Hkv = 1, D = 20 (padded)
-    (1, 70, 36, 1, 128, 70),     # g = 36: three head groups
+    (1, 70, 36, 1, 128, 70),     # g = 36: nine head groups
     (1, 50, 4, 4, 16, 80),       # S < T
+    (1, 70, 72, 2, 128, 70),     # g = 36 over two KV heads: groups abut
+    (2, 1000, 32, 8, 128, 1000),  # D 128, g 4, an S tail at a 128-row tile
 ]
+
+
+def _plan_rows(B, S, H, Hkv):
+    """Every (batch, query head, position) row the bf16 kernel's blocks
+    serve under :func:`flash_plan`, with its multiplicity, as the kernel
+    maps block (x, y) and row r."""
+    plan = flash_plan(S, H, Hkv)
+    g = H // Hkv
+    assert plan.G <= 16 and g % plan.G == 0 and plan.P * plan.G <= 128
+    seen = np.zeros((B, H, S), np.int64)
+    for x in range(B * Hkv * plan.ngroups):
+        hg, bh = x % plan.ngroups, x // plan.ngroups
+        b, kvh = bh // Hkv, bh % Hkv
+        h0 = kvh * g + hg * plan.G
+        assert h0 + plan.G <= (kvh + 1) * g    # never another KV head's rows
+        for y in range(plan.ntiles):
+            p0 = (plan.ntiles - 1 - y) * plan.P
+            r = np.arange(plan.P * plan.G)
+            pos, h = p0 + r // plan.G, h0 + r % plan.G
+            keep = pos < S
+            np.add.at(seen, (b, h[keep], pos[keep]), 1)
+    return seen
+
+
+@pytest.mark.parametrize("B,S,H,Hkv,D,T", _FLASH_CARD_SHAPES)
+def test_flash_plan_covers_every_row_once(B, S, H, Hkv, D, T):
+    assert (_plan_rows(B, S, H, Hkv) == 1).all()
+
+
+@settings(max_examples=60, deadline=None)
+@given(Hkv=st.integers(1, 8), g=st.integers(1, 40), S=st.integers(1, 600))
+def test_flash_plan_covers_every_row_once_sweep(Hkv, g, S):
+    assert (_plan_rows(1, S, Hkv * g, Hkv) == 1).all()
 
 
 @pytest.mark.cuda
@@ -368,11 +406,12 @@ def test_flash_attention_reads_strided_views_on_card(cuda):
     give the same result as their contiguous copies."""
     B, S, H, Hkv, D = 2, 130, 8, 2, 64
     g = torch.Generator().manual_seed(0)
-    qkv = torch.randn(B, S, H + 2 * Hkv, D, generator=g).to(cuda)
-    q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
-    a = flash_attention(q, k, v)
-    b = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
-    torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for dtype in (torch.float32, torch.bfloat16):   # FMA and TMA paths
+        qkv = torch.randn(B, S, H + 2 * Hkv, D, generator=g).to(cuda, dtype)
+        q, k, v = qkv[:, :, :H], qkv[:, :, H:H + Hkv], qkv[:, :, H + Hkv:]
+        a = flash_attention(q, k, v)
+        b = flash_attention(q.contiguous(), k.contiguous(), v.contiguous())
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 @pytest.mark.cuda
