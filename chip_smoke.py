@@ -16,8 +16,14 @@ no phase catches its own failure:
               within f32 2e-5 / bf16 2e-2 (the reference's
               ``tests/test_kernels.py``): RMSNorm at the serving path's
               row and the forward's 32,768 rows, decode attention at the
-              serving path's shapes and a GQA shape, flash attention at
-              qwen's, a windowed GQA and hubert's (odd S) shapes and, in
+              serving path's shapes and a GQA shape, at qwen's heads on a
+              32,768-slot cache at seven lengths around tile and cluster
+              boundaries, at jamba's (B 8, T 4096, 32 heads over 8, D 128)
+              with a ragged batch whose length-0 row must be exactly zero
+              and on a strided view of a larger cache (its contiguous
+              copy's bits), each called twice for the same bits; flash
+              attention at qwen's, a windowed GQA and hubert's (odd S)
+              shapes and, in
               bf16, at qwen's prefill shapes B 8 x S 4096 and B 1 x S
               32768 (the latter held one head at a time) and jamba's
               (8, 4096, 32 heads over 8, D 128; one KV head at a time);
@@ -34,6 +40,11 @@ no phase catches its own failure:
 4. times    — CUDA-event times at the paths' shapes: kernel, plain
               version, one library call computing the same function
               (yardstick only; the port never calls it), and the bound;
+              decode attention at L 128 and 512 (a 512-slot cache), 4096
+              and 32,768 (a 32,768-slot cache) and jamba's B 8 shape at
+              L 4096, its and SDPA's device µs per call from the profiler;
+              RMSNorm's and ``F.rms_norm``'s device µs at 1 x 1024,
+              32,768 x 1024 and 32,768 x 4096 rows;
               flash attention at the three shapes above, at qwen's
               prefill B 8 x S 4096 and at jamba's, with SDPA beside it;
               the event scan at n 64 x 4,096 orders and at
@@ -48,7 +59,8 @@ no phase catches its own failure:
               decode-attention launches per ``decode_step``; a full-width
               replay gives finite logits and the served first token;
 6. profile  — ``torch.profiler`` over full-width decode steps: device
-              time by kernel and the device's busy share;
+              time by kernel, the device's busy share, and decode
+              attention's device µs per launch and share of the step;
 7. prefill  — ``prefill_logits`` on qwen1.5-0.5b at full width (bf16,
               seeded weights) at B 8 x S 4096 and B 1 x S 32768: exactly
               24 flash-attention and 49 RMSNorm launches per call, finite
@@ -111,6 +123,7 @@ from pathlib import Path
 
 import numpy as np
 import torch
+from torch.profiler import ProfilerActivity, profile
 
 HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
@@ -189,8 +202,27 @@ def device_rows(prof) -> list[tuple[str, float, int]]:
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
-    require(bool(rows), "the profiler saw no device time")
     return rows
+
+
+def profiled(block, tries: int = 5):
+    """``block()`` under ``torch.profiler``: (the device rows, what
+    ``block`` returned, the sessions made).  In this long-lived process a
+    session can record no device activity at all, seemingly at random;
+    such a session is printed and ``block`` runs again after a pause,
+    ``tries`` sessions at most."""
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out = block()
+        rows = device_rows(prof)
+        if rows:
+            return rows, out, attempt + 1
+        print(f"[profile] session {attempt + 1} recorded no device "
+              "activity; again")
+        time.sleep(1.0)
+    raise SmokeFailure(f"the profiler recorded no device activity in "
+                       f"{tries} sessions")
 
 
 def flash_causal_ops(B: int, S: int, H: int, D: int, window=None,
@@ -425,7 +457,6 @@ def main(argv=None) -> int:
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
     from repro_torch.serve import Request, SchedulerPolicy, ServingEngine
-    from torch.profiler import ProfilerActivity, profile
 
     import torch.nn.functional as F
 
@@ -513,6 +544,51 @@ def main(argv=None) -> int:
                         errs["decode_attention"])
                 if B > 1:
                     break
+    # the split walk: qwen's heads on a 32,768-slot cache at lengths on
+    # both sides of a tile (32 or 64 positions) and of a deal over the
+    # cluster's 8 blocks; jamba's B 8 shape with a ragged batch holding a
+    # length 0 (its row exactly zero, where the plain version averages v);
+    # a strided view of a larger cache against its contiguous copy; every
+    # call twice, for the same bits
+    def check_decode(label, q, k, v, ln, qdt):
+        got = decode_attention(q, k, v, ln)
+        require(torch.equal(got, decode_attention(q, k, v, ln)),
+                f"{label}: two calls on the same inputs differ")
+        live = ln > 0
+        require(bool((got[~live] == 0).all()),
+                f"{label}: a row of length 0 is not exactly zero")
+        compare(label, got[live], decode_attention_plain(q, k, v, ln)[live],
+                qdt, errs["decode_attention"])
+        return got
+
+    for qdt, kvdt in ((torch.bfloat16, torch.bfloat16),
+                      (torch.float32, torch.float32)):
+        q = randn(1, 16, 64, dtype=qdt)
+        k, v = (randn(1, 32768, 16, 64, dtype=kvdt) for _ in range(2))
+        for L in (1, 31, 32, 33, 255, 4097, 32768):
+            ln = torch.full((1,), L, dtype=torch.int32, device=dev)
+            check_decode(f"decode_attention qwen heads T=32768 L={L} "
+                         f"q={qdt} kv={kvdt} (twice, same bits)",
+                         q, k, v, ln, qdt)
+        q = randn(8, 32, 128, dtype=qdt)
+        k, v = (randn(8, 4096, 8, 128, dtype=kvdt) for _ in range(2))
+        lens = [0, 1, 33, 1000, 2049, 4095, 4096, 4096]
+        ln = torch.tensor(lens, dtype=torch.int32, device=dev)
+        check_decode(f"decode_attention jamba B=8 H=32 Hkv=8 T=4096 D=128 "
+                     f"L={lens} q={qdt} kv={kvdt} (twice, same bits; the "
+                     f"length-0 row exactly zero)", q, k, v, ln, qdt)
+        big_k, big_v = (randn(2, 8192, 16, 64, dtype=kvdt) for _ in range(2))
+        k, v = big_k[:, 100:4196, 4:12], big_v[:, 100:4196, 4:12]
+        q = randn(2, 8, 64, dtype=qdt)
+        ln = torch.tensor([4000, 17], dtype=torch.int32, device=dev)
+        got = check_decode(f"decode_attention strided view (2, 4096, 8, 64) "
+                           f"of a (2, 8192, 16, 64) cache q={qdt} "
+                           f"kv={kvdt}", q, k, v, ln, qdt)
+        require(torch.equal(got, decode_attention(q, k.contiguous(),
+                                                  v.contiguous(), ln)),
+                "decode_attention: the strided view and its contiguous "
+                "copy differ")
+        del q, k, v, big_k, big_v, got
     print("[kernels] flash attention vs plain")
     flash_cases = [  # (B, S, H, Hkv, D, causal, window)
         (1, 4096, 16, 16, 64, True, None),     # qwen1.5-0.5b's forward
@@ -599,17 +675,40 @@ def main(argv=None) -> int:
         ``fn`` under the profiler, averaged over the launches it
         recorded (a launch at the very start of a window can go
         unrecorded)."""
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+
+        def calls():
             for _ in range(n):
                 fn()
             torch.cuda.synchronize()
-        ks = [r for r in device_rows(prof) if name in r[0]]
-        seen = sum(r[2] for r in ks)
+        rows = [r for r in profiled(calls)[0] if name in r[0]]
+        seen = sum(r[2] for r in rows)
         require(1 <= seen <= n, f"profile: {name} launches "
-                f"{[(r[0][:40], r[2]) for r in ks]} of {n}")
-        return sum(r[1] for r in ks) / seen
+                f"{[(r[0][:40], r[2]) for r in rows]} of {n}")
+        return sum(r[1] for r in rows) / seen
+
+    def graph_us(fn, n: int = 50) -> float:
+        """Device µs per call of ``fn`` from CUDA events around the replay
+        of a CUDA graph of ``n`` calls: the launches back to back, with no
+        host time between them and no profiler session."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            for _ in range(n):
+                fn()
+        graph.replay()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        return start.elapsed_time(end) * 1e3 / n
 
     def timed(name, fn, **kw):
         return time_ms(fn, runs_out=repeats.setdefault(name, []), **kw)
@@ -626,28 +725,75 @@ def main(argv=None) -> int:
                             lambda: F.rms_norm(x, (1024,), s_lib, 1e-6)),
         "bound_ms": r_bound, "bound_by": r_by,
         "shape": "x (1, 1024) bf16, scale (1024,) f32"}
-    B, H, Hkv, Tc, D = 1, 16, 16, 512, 64
-    q = randn(B, H, D, dtype=torch.bfloat16)
-    k = randn(B, Tc, Hkv, D, dtype=torch.bfloat16)
-    v = randn(B, Tc, Hkv, D, dtype=torch.bfloat16)
+
+    # RMSNorm's device time beside F.rms_norm's at one row (decode) and the
+    # prefills' rows (qwen 32,768 x 1024, jamba B 8 x S 4096 x 4096), each
+    # beside its bytes bound; device times of short calls come from CUDA
+    # graphs, which open no profiler session (tools/decode_turns.py gives
+    # the profiler's for decode attention and SDPA)
+    rms_dev = {}
+    for rows, d in ((1, 1024), (32768, 1024), (32768, 4096)):
+        xr = randn(rows, d, dtype=torch.bfloat16)
+        sr = randn(d, scale=0.1, shift=1.0)
+        sr_lib = sr.to(torch.bfloat16)
+        rb, rby = bound(xr.numel() * 2 * 2 + d * 4, 4 * xr.numel(),
+                        torch.bfloat16)
+        rms_dev[f"{rows}x{d}"] = {
+            "kernel_device_us": graph_us(lambda: rmsnorm_rows(xr, sr)),
+            "library_device_us": graph_us(
+                lambda: F.rms_norm(xr, (d,), sr_lib, 1e-6)),
+            "bound_us": rb * 1e3, "bound_by": rby,
+            "shape": f"x ({rows}, {d}) bf16, scale ({d},)"}
+        del xr
+    kern["rmsnorm"]["device_us"] = rms_dev
+
+    # decode attention: L 128 and 512 on a 512-slot cache (the serving
+    # path's), L 4096 and 32,768 on a 32,768-slot one (qwen's context),
+    # and jamba's B 8 x 32 heads over 8 x D 128 at L 4096; kernel, plain
+    # and SDPA (the KV heads as they are, enable_gqa) call ms, and the
+    # kernel's and SDPA's device µs per call
     att = {}
-    for L in (128, 512):
+    qwen_q = randn(1, 16, 64, dtype=torch.bfloat16)
+    cache512 = [randn(1, 512, 16, 64, dtype=torch.bfloat16)
+                for _ in range(2)]
+    cache32k = [randn(1, 32768, 16, 64, dtype=torch.bfloat16)
+                for _ in range(2)]
+    jamba_q = randn(8, 32, 128, dtype=torch.bfloat16)
+    jamba_kv = [randn(8, 4096, 8, 128, dtype=torch.bfloat16)
+                for _ in range(2)]
+    for key, q, (k, v), L in (("L128", qwen_q, cache512, 128),
+                              ("L512", qwen_q, cache512, 512),
+                              ("L4096", qwen_q, cache32k, 4096),
+                              ("L32768", qwen_q, cache32k, 32768),
+                              ("jamba_L4096", jamba_q, jamba_kv, 4096)):
+        B, H, D = q.shape
+        Tc, Hkv = k.shape[1], k.shape[2]
         ln = torch.full((B,), L, dtype=torch.int32, device=dev)
         q4 = q.view(B, H, 1, D)
         k4, v4 = k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
-        lib = timed(f"decode_attention.L{L}.sdpa",
-                    lambda: F.scaled_dot_product_attention(q4, k4, v4))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(q4, k4, v4,
+                                                  enable_gqa=H != Hkv)
+
         a_bytes = 2 * q.numel() * 2 + 2 * B * L * Hkv * D * 2 + 4 * B
         a_bound, a_by = bound(a_bytes, 4 * B * H * L * D + 3 * B * H * L,
                               torch.bfloat16)
-        att[L] = {
-            "ms": timed(f"decode_attention.L{L}",
+        att[key] = {
+            "ms": timed(f"decode_attention.{key}",
                         lambda: decode_attention(q, k, v, ln)),
-            "plain_ms": timed(f"decode_attention.L{L}.plain",
-                              lambda: decode_attention_plain(q, k, v, ln)),
-            "library_ms": lib, "bound_ms": a_bound, "bound_by": a_by,
-            "shape": f"q (1, 16, 64) bf16, cache (1, 512, 16, 64) bf16, L={L}"}
-    kern["decode_attention"] = att[128]
+            "plain_ms": timed(f"decode_attention.{key}.plain",
+                              lambda: decode_attention_plain(q, k, v, ln),
+                              n=20 if L > 512 else 200),
+            "library_ms": timed(f"decode_attention.{key}.sdpa", sdpa),
+            "device_us": graph_us(lambda: decode_attention(q, k, v, ln)),
+            "library_device_us": graph_us(sdpa),
+            "bound_ms": a_bound, "bound_by": a_by,
+            "shape": f"q ({B}, {H}, {D}) bf16, cache ({B}, {Tc}, {Hkv}, "
+                     f"{D}) bf16, L={L}"}
+    del cache32k, jamba_kv
+    torch.cuda.empty_cache()
+    kern["decode_attention"] = att["L128"]
     # flash attention at the shapes of §3, qwen's prefill B 8 and jamba's
     # (no plain time there: 17 GB of f32 scores in one call); SDPA gets its
     # own (B, H, S, D) layout, the KV heads repeated to H and the window as
@@ -752,14 +898,14 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kern["mamba_scan"] = mamba_t["B1"]
     report["times"] = {"rmsnorm": kern["rmsnorm"],
-                       "decode_attention": {str(L): a for L, a in att.items()},
+                       "decode_attention": att,
                        "flash_attention": flash_t,
                        "event_scan": scan_t,
                        "mamba_scan": mamba_t,
                        "repeats_ms": repeats}
-    for label, t in [("rmsnorm", kern["rmsnorm"]),
-                     ("decode_attention L=128", att[128]),
-                     ("decode_attention L=512", att[512])] + [
+    for label, t in [("rmsnorm", kern["rmsnorm"])] + [
+                        (f"decode_attention {key}", t)
+                        for key, t in att.items()] + [
                         (f"flash_attention {key} (n 20, plain n 5)", t)
                         for key, t in flash_t.items()]:
         plain = ("not timed" if t["plain_ms"] is None
@@ -767,6 +913,17 @@ def main(argv=None) -> int:
         print(f"[times] {label}: kernel {t['ms']:.5f} ms, plain "
               f"{plain}, library {t['library_ms']:.5f} ms, "
               f"bound {t['bound_ms']:.3e} ms ({t['bound_by']}) "
+              f"[{t['shape']}]")
+    for key, t in rms_dev.items():
+        print(f"[times] rmsnorm {key} device (CUDA graph of 50 calls): "
+              f"kernel {t['kernel_device_us']:.2f} us per launch, "
+              f"F.rms_norm {t['library_device_us']:.2f} us per call, bound "
+              f"{t['bound_us']:.3f} us ({t['bound_by']}) [{t['shape']}]")
+    for key, t in att.items():
+        print(f"[times] decode_attention {key} device (CUDA graph of 50 "
+              f"calls): kernel {t['device_us']:.2f} us per launch, SDPA "
+              f"{t['library_device_us']:.2f} us per call, bound "
+              f"{t['bound_ms'] * 1e3:.3f} us ({t['bound_by']}) "
               f"[{t['shape']}]")
     for key, t in scan_t.items():
         print(f"[times] event_scan {key} (n 20; plain n 1, one repeat): "
@@ -870,20 +1027,31 @@ def main(argv=None) -> int:
                 cache, plen + i)
         torch.cuda.synchronize()
         wall_plain = time.perf_counter() - t0
-    with torch.inference_mode(), profile(
-            activities=[ProfilerActivity.CPU,
-                        ProfilerActivity.CUDA]) as prof:
+    next_pos = [plen + n_prof]
+
+    def steps():   # n_prof more steps, each session at new positions
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         for i in range(n_prof):
-            logits, cache = T.decode_step(
-                params, cfg_full, torch.tensor([first], device=dev),
-                cache, plen + n_prof + i)
+            T.decode_step(params, cfg_full,
+                          torch.tensor([first], device=dev), cache,
+                          next_pos[0] + i)
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = device_rows(prof)
+        next_pos[0] += n_prof
+        return time.perf_counter() - t0
+    with torch.inference_mode():
+        rows, wall, _ = profiled(steps)
     busy_us = sum(r[1] for r in rows)
+    da = [r for r in rows if "decode_attention" in r[0]]
+    require(bool(da), "profile: no decode-attention launch in the steps")
+    da_us = sum(r[1] for r in da)
     prof_rep = {"steps": n_prof,
+                "decode_attention_device_us_per_launch":
+                    da_us / sum(r[2] for r in da),
+                "decode_attention_launches_per_step":
+                    sum(r[2] for r in da) / n_prof,
+                "decode_attention_device_ms_per_step": da_us / 1e3 / n_prof,
+                "decode_attention_share_of_device_time": da_us / busy_us,
                 "unprofiled_wall_ms_per_step": wall_plain * 1e3 / n_prof,
                 "wall_ms_per_step": wall * 1e3 / n_prof,
                 "device_busy_ms_per_step": busy_us / 1e3 / n_prof,
@@ -897,6 +1065,13 @@ def main(argv=None) -> int:
           f"device busy {prof_rep['device_busy_share']:.1%} of it: "
           f"{busy_us / 1e3 / n_prof:.3f} ms/step in "
           f"{prof_rep['device_events_per_step']:.0f} kernels and copies")
+    print(f"[profile] decode attention: "
+          f"{prof_rep['decode_attention_device_us_per_launch']:.2f} us per "
+          f"launch, {prof_rep['decode_attention_launches_per_step']:.0f} "
+          f"launches per step, "
+          f"{prof_rep['decode_attention_device_ms_per_step']:.4f} ms per "
+          f"step, {prof_rep['decode_attention_share_of_device_time']:.1%} "
+          f"of device time")
     for r in prof_rep["top"][:8]:
         print(f"[profile]   {r['device_us_per_step']:9.2f} us/step "
               f"x{r['calls_per_step']:.0f}  {r['name']}")
@@ -922,13 +1097,13 @@ def main(argv=None) -> int:
                 logits = T.prefill_logits(params, cfg_full, toks)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            def call():
                 t0 = time.perf_counter()
                 T.prefill_logits(params, cfg_full, toks)
                 torch.cuda.synchronize()
-                wall_prof = time.perf_counter() - t0
-        n_calls += 5
+                return time.perf_counter() - t0
+            rows, wall_prof, sessions = profiled(call)
+        n_calls += 4 + sessions
         counts = launch_counts()
         require(counts == {"rmsnorm": 49 * n_calls, "decode_attention": 0,
                            "flash_attention": 24 * n_calls,
@@ -939,7 +1114,6 @@ def main(argv=None) -> int:
                 f"prefill logits shape {tuple(logits.shape)}")
         require(bool(torch.isfinite(logits).all()),
                 "non-finite prefill logits")
-        rows = device_rows(prof)
         fl = [r for r in rows if "flash_attention" in r[0]]
         require(len(fl) >= 1 and sum(r[2] for r in fl) == 24,
                 f"profile: flash launches {[(r[0][:40], r[2]) for r in fl]}")
@@ -1191,13 +1365,13 @@ def main(argv=None) -> int:
                 logits = T.prefill_logits(params, cfg_j, toks)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
+            def call():
                 t0 = time.perf_counter()
                 T.prefill_logits(params, cfg_j, toks)
                 torch.cuda.synchronize()
-                wall_prof = time.perf_counter() - t0
-        n_calls += 5
+                return time.perf_counter() - t0
+            rows, wall_prof, sessions = profiled(call)
+        n_calls += 4 + sessions
         counts = launch_counts()
         require(counts == {"rmsnorm": 17 * n_calls, "decode_attention": 0,
                            "flash_attention": n_calls, "event_scan": 0,
@@ -1208,7 +1382,6 @@ def main(argv=None) -> int:
         require(tuple(logits.shape) == (B, cfg_j.vocab)
                 and bool(torch.isfinite(logits).all()),
                 f"jamba prefill logits {tuple(logits.shape)} not finite")
-        rows = device_rows(prof)
         sc = [r for r in rows if "mamba_scan" in r[0]]
         require(sum(r[2] for r in sc) == 7,
                 f"profile: scan launches {[(r[0][:40], r[2]) for r in sc]}")

@@ -7,9 +7,14 @@ imports ``torch`` and NumPy, never JAX or ``repro``; its tests check it
 against ``repro``.  Entry points run on ``cuda`` unless the caller asks
 for ``device="cpu"``, where every kernel's plain PyTorch version runs.
 
-Ported so far: configs, the dense GQA decode path
-(:mod:`.models`), the RMSNorm and decode-attention kernels
-(:mod:`.kernels`), the host scheduler (:mod:`.core`), observability
-(:mod:`.obs`), the flat serving engine (:mod:`.serve`) and its
-command-line entry point (:mod:`.launch.serve`).  ROADMAP.md lists the rest.
+Ported so far: configs and shapes, the models (:mod:`.models`: GQA
+decode and forward for every dense GQA arch, Mamba and MoE layers for
+jamba and mixtral), all five TPU kernels as CUDA C++ for ``sm_90a``
+(:mod:`.kernels`: RMSNorm, decode attention, flash attention, the event
+scan and the selective scan), the host scheduler with its simulators,
+refiners and design-space protocol (:mod:`.core`), observability
+(:mod:`.obs`), the flat serving engine with refined composition
+(:mod:`.serve`) and its command-line entry point (:mod:`.launch.serve`).
+ROADMAP.md lists the rest (MLA, the dependency-aware composition, the
+front end, xLSTM, training, distribution).
 """

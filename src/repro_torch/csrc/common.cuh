@@ -1,7 +1,10 @@
 // Shared helpers for the port's kernels: dtype codes, 16-byte vector
-// loads converted to float, stores from float, warp reductions.
+// loads converted to float, stores from float, warp reductions; for the
+// Hopper kernels (flash and decode attention) mbarriers, TMA loads and the
+// tensor-map encoder.
 #pragma once
 
+#include <cuda.h>  // CUtensorMap and its enums; the encoder comes from the driver at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -63,6 +66,102 @@ __device__ __forceinline__ float warp_max(float v) {
 #pragma unroll
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
+}
+
+// -- mbarriers and TMA --------------------------------------------------------
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+// One arrival that also announces `bytes` of TMA traffic to come.
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+// Wait until the phase of parity `parity` has completed.  A barrier that
+// never completes (a byte count that disagrees with the loads) traps after
+// 2^26 polls, seconds at least, instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  for (uint32_t n = 0;; ++n) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (n == (1u << 26)) __trap();
+  }
+}
+
+// TMA: the box at coordinates (c0, c1, c2, c3) of `map` into shared memory
+// at `dst`, its bytes completing on the barrier.
+__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// -- tensor maps (host) -----------------------------------------------------
+
+// cuTensorMapEncodeTiled, from the driver through the runtime, so the
+// library links no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled tensor_map_encoder() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
+            cudaSuccess ||
+        found != cudaDriverEntryPointSuccess)
+      p = nullptr;
+    return reinterpret_cast<EncodeTiled>(p);
+  }();
+  return fn;
+}
+
+// A map over (D, heads, positions, batch) of `esize`-byte elements with
+// element strides sh, sp, sb and box (box_d, box_heads, box_len, 1); reads
+// out of bounds fill zeros.  A dimension of extent 1 gets a nominal stride
+// (any is read at coordinate 0 only).
+inline bool encode_heads_map(CUtensorMap* map, CUtensorMapDataType type, int esize,
+                             const void* ptr, int D, int heads, int len, int B, long long sh,
+                             long long sp, long long sb, int box_d, int box_heads, int box_len,
+                             CUtensorMapSwizzle swizzle) {
+  const EncodeTiled enc = tensor_map_encoder();
+  if (enc == nullptr) return false;
+  if (heads == 1) sh = D;
+  if (len == 1) sp = heads * sh;
+  if (B == 1) sb = len * sp;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(len), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * esize,
+                                 static_cast<cuuint64_t>(sp) * esize,
+                                 static_cast<cuuint64_t>(sb) * esize};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(box_d), static_cast<cuuint32_t>(box_heads),
+                             static_cast<cuuint32_t>(box_len), 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return enc(map, type, 4, const_cast<void*>(ptr), dims, strides, box, elem,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace repro

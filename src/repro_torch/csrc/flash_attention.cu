@@ -335,52 +335,6 @@ struct TmaLayout {
   static constexpr int kSmem = kBar + 8 * (1 + 2 * kStages) + 1024;  // + alignment slack
 };
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-// One arrival that also announces `bytes` of TMA traffic to come.
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar), "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-// Wait until the phase of parity `parity` has completed.  A barrier that
-// never completes (a byte count that disagrees with the loads) traps after
-// 2^26 polls, seconds at least, instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  for (uint32_t n = 0;; ++n) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\nmbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-    if (done) return;
-    if (n == (1u << 26)) __trap();
-  }
-}
-
-// TMA: the box at coordinates (c0, c1, c2, c3) of `map` into shared memory
-// at `dst`, its bytes completing on the barrier.
-__device__ __forceinline__ void tma_load4(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                          int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
-      : "memory");
-}
-
 // wgmma shared-memory descriptor for the 128-byte swizzle: start address,
 // leading and stride byte offsets.  K-major (Q, K): the stride offset is
 // 1024 bytes between 8-row groups, the leading one unused; a 16-column step
@@ -855,48 +809,12 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
-// cuTensorMapEncodeTiled, from the driver through the runtime, so the
-// library links no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled tensor_map_encoder() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found) !=
-            cudaSuccess ||
-        found != cudaDriverEntryPointSuccess)
-      p = nullptr;
-    return reinterpret_cast<EncodeTiled>(p);
-  }();
-  return fn;
-}
-
 // A bf16 map over (D, heads, positions, batch) with element strides sh, sp,
-// sb, swizzled 128 bytes, box (64, box_heads, box_len, 1).  A dimension of
-// extent 1 gets a nominal stride (any is read at coordinate 0 only).
+// sb, swizzled 128 bytes, box (64, box_heads, box_len, 1).
 bool encode_map(CUtensorMap* map, const void* ptr, int D, int heads, int len, int B,
                 long long sh, long long sp, long long sb, int box_heads, int box_len) {
-  const EncodeTiled enc = tensor_map_encoder();
-  if (enc == nullptr) return false;
-  if (heads == 1) sh = D;
-  if (len == 1) sp = heads * sh;
-  if (B == 1) sb = len * sp;
-  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D), static_cast<cuuint64_t>(heads),
-                              static_cast<cuuint64_t>(len), static_cast<cuuint64_t>(B)};
-  const cuuint64_t strides[3] = {static_cast<cuuint64_t>(sh) * 2,
-                                 static_cast<cuuint64_t>(sp) * 2,
-                                 static_cast<cuuint64_t>(sb) * 2};
-  const cuuint32_t box[4] = {64, static_cast<cuuint32_t>(box_heads),
-                             static_cast<cuuint32_t>(box_len), 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-             box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  return encode_heads_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, ptr, D, heads, len, B, sh,
+                          sp, sb, 64, box_heads, box_len, CU_TENSOR_MAP_SWIZZLE_128B);
 }
 
 template <int DN, int BN>

@@ -2,14 +2,16 @@
 :mod:`.build`, bound with ctypes), each beside its plain PyTorch
 version and a launch counter on its wrapper."""
 
-from .decode_attention import decode_attention, decode_attention_plain
+from .decode_attention import (decode_attention, decode_attention_plain,
+                               decode_plan)
 from .event_scan import event_times, event_times_plain, event_times_reference
 from .flash_attention import (flash_attention, flash_attention_plain,
                               flash_plan)
 from .mamba_scan import mamba_scan, mamba_scan_plain
 from .rmsnorm import rmsnorm_rows, rmsnorm_rows_plain
 
-__all__ = ["decode_attention", "decode_attention_plain", "event_times",
+__all__ = ["decode_attention", "decode_attention_plain", "decode_plan",
+           "event_times",
            "event_times_plain", "event_times_reference", "flash_attention",
            "flash_attention_plain", "flash_plan", "mamba_scan",
            "mamba_scan_plain",

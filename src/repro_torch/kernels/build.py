@@ -108,8 +108,13 @@ def library() -> ctypes.CDLL:
         p, p, p, p, p,              # q, k, v, lengths, out
         i, i, i, i, i,              # B, H, Hkv, T, D
         ll, ll, ll, ll, ll, ll,     # k strides (b, t, h), v strides
-        f, i, i, p]                 # scale, q dtype, kv dtype, stream
+        f, i, i,                    # scale, q dtype, kv dtype
+        i, i, i, i, i, p]           # plan tile, stages, cluster, grid, smem; stream
     lib.repro_decode_attention.restype = i
+    lib.repro_decode_attention_clusters.argtypes = [
+        i, i, i, i, i,              # H, Hkv, D, q dtype, kv dtype
+        i, i, i, i]                 # plan tile, stages, cluster, smem
+    lib.repro_decode_attention_clusters.restype = i
     lib.repro_flash_attention.argtypes = [
         p, p, p, p,                 # q, k, v, out
         i, i, i, i, i, i,           # B, S, T, H, Hkv, D

@@ -5,9 +5,13 @@ Replaces the Pallas TPU kernel ``decode_attention_bh``
 the reference's XLA ``decode_sdpa``.  The kernel
 (``csrc/decode_attention.cu``) is bound by bytes: it reads the valid
 prefix of the KV cache once, in place in its ``(B, T, Hkv, D)`` layout,
-with one block per (batch, KV head) serving that head's whole query
-group, and keeps the online softmax on chip; the source note in the
-``.cu`` file has the details.
+split over a cluster of blocks per (batch, KV head, group of up to 8
+query heads).  Each block streams its share of the prefix through a ring
+of TMA-fed stages, and the blocks merge their online-softmax partials in
+a fixed order through distributed shared memory, all in one launch.
+:func:`decode_plan` sets tile, ring depth, cluster size, grid and shared
+memory from the shapes alone; the source note in the ``.cu`` file has
+the details.
 
 Both versions keep the softmax weights in f32 for the P.V product, as
 the TPU kernel does (``decode_sdpa`` rounds them to the cache dtype
@@ -21,16 +25,92 @@ kernel's launches.
 
 from __future__ import annotations
 
+import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from .build import library
 
-__all__ = ["decode_attention", "decode_attention_plain"]
+__all__ = ["DecodePlan", "decode_attention", "decode_attention_plain",
+           "decode_plan"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
+_WARPS = 8             # warps per block (csrc/decode_attention.cu kWarps)
+_MAX_GROUP = 8         # query heads per cluster
+_CLUSTER = 8           # blocks per cluster, the portable maximum
+_STAGES = 2            # K/V stages in each block's ring
+_STAGE_BYTES = 32768   # K + V bytes a stage aims at
+
+
+class DecodePlan(NamedTuple):
+    """The kernel's launch: ``grid`` blocks in clusters of ``cluster``,
+    cluster ``x // cluster`` serving batch ``x // (Hkv * ngroups)``, KV
+    head ``x // ngroups % Hkv`` and query heads ``(x % ngroups) * heads``
+    onward of that KV head's g (``ngroups = ceil(g / heads)``); block
+    rank r of a cluster reads tiles r, r + cluster, ... of ``tile``
+    positions of the valid prefix through a ring of ``stages`` K/V
+    stages; ``smem`` dynamic shared-memory bytes a block."""
+    tile: int
+    stages: int
+    cluster: int
+    heads: int
+    grid: int
+    smem: int
+
+
+def _pow2_ceil(n: int) -> int:
+    return 1 << max(n - 1, 0).bit_length()
+
+
+@functools.lru_cache(maxsize=None)
+def decode_plan(B: int, H: int, Hkv: int, T: int, D: int,
+                q_dtype: torch.dtype, kv_dtype: torch.dtype) -> DecodePlan:
+    """The plan for q (B, H, D) in ``q_dtype`` on a (B, T, Hkv, D) cache in
+    ``kv_dtype``, from the shapes alone (the lengths are read on the
+    card).  The tile is the power of two, 8 to 256 positions and no
+    larger than T needs, that brings a stage's K and V nearest
+    ``_STAGE_BYTES`` from below; the query heads per cluster are g
+    rounded up to a power of two, at most 8.  q's dtype does not change
+    the plan."""
+    if q_dtype not in _DTYPE_CODES or kv_dtype not in _DTYPE_CODES:
+        raise TypeError("decode_plan: q and the cache must be float32 or "
+                        "bfloat16")
+    esize = 4 if kv_dtype == torch.float32 else 2
+    g = H // Hkv
+    heads = min(_MAX_GROUP, _pow2_ceil(g))
+    tile = 1 << ((_STAGE_BYTES // (2 * D * esize)).bit_length() - 1)
+    tile = max(8, min(256, tile, _pow2_ceil(T)))
+    # the layout of csrc/decode_attention.cu's `layout`: the ring (later
+    # the warps' partials), the block's partial, the mbarriers, slack to
+    # align the ring to 128 bytes
+    ring = _STAGES * 2 * tile * D * esize
+    warps = 4 * _WARPS * heads * (D + 2)
+    part = -(-max(ring, warps) // 16) * 16
+    bars = -(-(part + 4 * heads * (D + 2)) // 8) * 8
+    smem = bars + 16 * _STAGES + 128
+    ngroups = -(-g // heads)
+    return DecodePlan(tile, _STAGES, _CLUSTER, heads,
+                      B * Hkv * ngroups * _CLUSTER, smem)
+
+
+@functools.lru_cache(maxsize=None)
+def _schedulable(plan: DecodePlan, H: int, Hkv: int, D: int, q_code: int,
+                 kv_code: int, device: int) -> int:
+    """Clusters of ``plan`` the card holds at once; raises where it holds
+    none (the cluster cannot be scheduled) or the query fails."""
+    n = library().repro_decode_attention_clusters(
+        H, Hkv, D, q_code, kv_code, plan.tile, plan.stages, plan.cluster,
+        plan.smem)
+    if n < 0:
+        raise RuntimeError(f"decode attention: the cluster occupancy query "
+                           f"failed: CUDA error {-n} for {plan}")
+    if n == 0:
+        raise RuntimeError(f"decode attention: the card cannot schedule a "
+                           f"cluster of {plan}")
+    return n
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
@@ -100,10 +180,14 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     B, H, D = q.shape
     _, T, Hkv, _ = k.shape
+    plan = decode_plan(B, H, Hkv, T, D, q.dtype, k.dtype)
+    q_code, kv_code = _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype]
+    _schedulable(plan, H, Hkv, D, q_code, kv_code, q.device.index)
     rc = library().repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
         out.data_ptr(), B, H, Hkv, T, D, *k.stride()[:3], *v.stride()[:3],
-        1.0 / math.sqrt(D), _DTYPE_CODES[q.dtype], _DTYPE_CODES[k.dtype],
+        1.0 / math.sqrt(D), q_code, kv_code, plan.tile, plan.stages,
+        plan.cluster, plan.grid, plan.smem,
         torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"decode attention kernel launch failed: CUDA "

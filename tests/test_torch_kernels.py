@@ -12,6 +12,7 @@ no CUDA device is present (``PYTHONPATH=src python -m pytest -m cuda
 tests/test_torch_*.py`` on the card).
 """
 
+import math
 from types import SimpleNamespace
 
 import numpy as np
@@ -22,7 +23,7 @@ from hypothesis import strategies as st
 
 from repro_torch.core.seeded import scan_table
 from repro_torch.kernels import (decode_attention, decode_attention_plain,
-                                 event_scan, event_times, event_times_plain,
+                                 decode_plan, event_scan, event_times, event_times_plain,
                                  event_times_reference, flash_attention,
                                  flash_attention_plain, flash_plan,
                                  launch_counts,
@@ -190,6 +191,118 @@ def test_decode_attention_reads_strided_cache():
     torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
+# The kernel's split-KV plan and walk, mirrored on the CPU: the plan's
+# limits, the device-side split rule, and the split-and-combine arithmetic.
+
+_SMEM_MAX = 232448   # 227 KB, a Hopper block's most
+
+
+def _split(length, T, tile, S, rank):
+    """The kernel's split rule: block ``rank`` of a cluster of S takes
+    tiles rank, rank + S, ... of ``tile`` positions of the prefix
+    [0, len), len clamped to [0, T], each cut at len."""
+    n = min(max(length, 0), T)
+    ntiles = -(-n // tile)
+    mine = (ntiles - rank + S - 1) // S if ntiles > rank else 0
+    return [(t * tile, min(t * tile + tile, n))
+            for t in (rank + i * S for i in range(mine))]
+
+
+@pytest.mark.parametrize("D", [8, 16, 64, 80, 128, 256])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_plan_fits_the_card(D, dtype):
+    """Shared memory within a block's 227 KB, the grid whole clusters of
+    S, one cluster per (batch, KV head, head group), for B * Hkv from 1
+    to 64 and groups g from 1 to 12."""
+    for B, Hkv in ((1, 1), (1, 8), (1, 16), (2, 16), (8, 8), (4, 16),
+                   (64, 1)):
+        for g in (1, 2, 3, 4, 6, 8, 12):
+            for T in (1, 33, 512, 32768):
+                plan = decode_plan(B, g * Hkv, Hkv, T, D, dtype, dtype)
+                assert plan.smem <= _SMEM_MAX
+                assert plan.grid % plan.cluster == 0
+                assert plan.grid == B * Hkv * -(-g // plan.heads) * plan.cluster
+                assert plan.heads in (1, 2, 4, 8) and plan.heads >= min(g, 8)
+                assert plan.tile & (plan.tile - 1) == 0
+                assert 8 <= plan.tile <= 256   # a TMA box has 256 rows at most
+                assert plan.cluster == 8 and plan.stages >= 2
+
+
+@pytest.mark.parametrize("T", [1, 31, 32, 33, 512, 4096])
+@pytest.mark.parametrize("D,dtype", [(64, torch.bfloat16),
+                                     (256, torch.float32)])
+def test_decode_split_covers_prefix_once(T, D, dtype):
+    """For every length (and one beyond each end), the S blocks' tiles
+    cover every position of the clamped prefix exactly once."""
+    plan = decode_plan(1, 16, 16, T, D, dtype, dtype)
+    for length in range(-1, T + 2):
+        n = min(max(length, 0), T)
+        seen = np.zeros(T, np.int64)
+        for r in range(plan.cluster):
+            for a, b in _split(length, T, plan.tile, plan.cluster, r):
+                assert 0 <= a < b <= n
+                seen[a:b] += 1
+        assert (seen[:n] == 1).all() and (seen[n:] == 0).all()
+
+
+def _split_twin(q, k, v, lengths, tile, S):
+    """The kernel's split-and-combine arithmetic in plain f32: each split's
+    online-softmax partial (m, l, acc) in base 2, an empty split
+    (m, l, acc) = (-1e30, 0, 0), merged in rank order 0..S-1; a row whose
+    splits are all empty gets zeros."""
+    B, H, D = q.shape
+    T, Hkv = k.shape[1], k.shape[2]
+    g = H // Hkv
+    qs = q.float() * (math.log2(math.e) / math.sqrt(D))
+    out = torch.zeros(B, H, D)
+    for b in range(B):
+        for h in range(H):
+            parts = []
+            for r in range(S):
+                idx = [t for a, e in _split(int(lengths[b]), T, tile, S, r)
+                       for t in range(a, e)]
+                if not idx:
+                    parts.append((-1e30, 0.0, torch.zeros(D)))
+                    continue
+                s = k[b, idx, h // g].float() @ qs[b, h]
+                m = float(s.max())
+                p = torch.exp2(s - m)
+                parts.append((m, float(p.sum()), p @ v[b, idx, h // g].float()))
+            M = max(m for m, _, _ in parts)
+            L, A = 0.0, torch.zeros(D)
+            for m, l, a in parts:
+                w = 2.0 ** (m - M)
+                L, A = L + l * w, A + a * w
+            if L > 0:
+                out[b, h] = A / L
+    return out
+
+
+@pytest.mark.parametrize("B,H,Hkv,T,D,lengths,tile,S", [
+    (3, 4, 2, 64, 16, [0, 5, 64], 8, 8),      # length 0; 7 empty splits
+    (3, 4, 2, 64, 16, [0, 5, 64], 8, 1),      # one split
+    (2, 8, 2, 100, 32, [1, 77], 16, 3),       # g = 4, uneven deal
+    (2, 6, 6, 256, 64, [255, 129], 32, 8),    # every split non-empty
+    (1, 16, 4, 40, 16, [33], 8, 5),           # the last split partial
+    (2, 6, 3, 96, 24, [0, 0], 8, 8),          # every row empty
+])
+def test_decode_split_twin_matches_reference(ref, B, H, Hkv, T, D, lengths,
+                                             tile, S):
+    """The split-and-combine arithmetic against the Pallas kernel
+    (interpret mode) and the oracle, f32 2e-5, on the rows of non-zero
+    length; rows of length 0 are exactly zero (the reference's kernel
+    averages v there)."""
+    q, k, v, lens = _attn_inputs(B, H, Hkv, T, D, lengths)
+    out = _split_twin(*(torch.from_numpy(a) for a in (q, k, v)),
+                      lens, tile, S)
+    live = lens > 0
+    assert (out[~live] == 0).all()
+    if live.any():
+        kernel, oracle = _reference(ref, q, k, v, lens, "float32", "float32")
+        _close(out[live], np.asarray(kernel)[live], "float32")
+        _close(out[live], np.asarray(oracle)[live], "float32")
+
+
 def test_cpu_tensors_take_plain_versions_and_count_no_launch():
     reset_launch_counts()
     x = torch.randn(3, 64, generator=torch.Generator().manual_seed(0))
@@ -310,22 +423,56 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, R, dtype):
     (1, 16, 16, 512, 64, [511]),
     (1, 16, 16, 512, 64, [512]),
     (4, 32, 8, 4096, 128, [1, 1000, 4095, 4096]),
+    # long caches: qwen's heads at the full 32,768-position context
+    (1, 16, 16, 32768, 64, [32768]),
+    (1, 16, 16, 32768, 64, [4097]),
+    # both sides of every tile (32 or 64 positions at D 64) and of the
+    # deal of tiles over a cluster of 8 (8 tiles: 256 or 512 positions)
+    (12, 16, 16, 1024, 64, [31, 32, 33, 63, 64, 65, 255, 256, 257, 511,
+                            512, 513]),
+    # rows of length 0 (every split empty) beside full ones, g = 4
+    (3, 32, 8, 4096, 128, [0, 4096, 1]),
+    (2, 6, 6, 64, 16, [0, 0]),
 ])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_kernel_matches_plain_on_card(cuda, B, H, Hkv, T, D,
                                                        lengths, dtype):
+    """Within tolerance of the plain version (rows of length 0 exactly
+    zero, where the plain version averages v), and the same bits on a
+    second call."""
     q, k, v, lens = _attn_inputs(B, H, Hkv, T, D, lengths)
     dt = getattr(torch, dtype)
     tq, tk, tv = (torch.from_numpy(a).to(cuda, dt) for a in (q, k, v))
     tl = torch.from_numpy(lens).to(cuda)
     before = decode_attention.launches
     out = decode_attention(tq, tk, tv, tl)
+    again = decode_attention(tq, tk, tv, tl)
     torch.cuda.synchronize()
-    assert decode_attention.launches == before + 1
+    assert decode_attention.launches == before + 2
+    assert torch.equal(out, again)
+    live = torch.from_numpy(lens > 0).to(cuda)
+    assert (out[~live] == 0).all()
     tol = _TOL[dtype]
     torch.testing.assert_close(
-        out.float(), decode_attention_plain(tq, tk, tv, tl).float(),
+        out[live].float(),
+        decode_attention_plain(tq, tk, tv, tl)[live].float(),
         rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_reads_strided_cache_on_card(cuda, dtype):
+    """A view of a longer cache with more KV heads (the kernel's tensor
+    maps read it through its strides) gives its contiguous copy's bits."""
+    q, k, v, lens = _attn_inputs(2, 8, 4, 700, 64, [300, 513])
+    dt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(cuda, dt) for a in (q, k, v))
+    tl = torch.from_numpy(lens).to(cuda)
+    kv = tk[:, :600, 1:3], tv[:, :600, 1:3]
+    a = decode_attention(tq[:, 2:6].contiguous(), *kv, tl)
+    b = decode_attention(tq[:, 2:6].contiguous(),
+                         *(t.contiguous() for t in kv), tl)
+    torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 _FLASH_CARD_SHAPES = [

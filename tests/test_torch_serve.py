@@ -270,6 +270,7 @@ def test_entry_points_default_to_cuda():
 
 def _port_files():
     return sorted((_ROOT / "src" / "repro_torch").rglob("*.py")) + \
+        sorted((_ROOT / "tools").glob("*_turns.py")) + \
         [_ROOT / "chip_smoke.py"]
 
 
@@ -289,6 +290,7 @@ def test_port_imports_neither_jax_nor_repro():
     for mod in ("core/simulator.py", "core/refine.py", "core/batched.py",
                 "core/experiments.py", "kernels/event_scan.py"):
         assert port / mod in files, mod
+    assert _ROOT / "tools" / "decode_turns.py" in files
     bad = [(p.relative_to(_ROOT), m) for p in files
            for m in _imported_modules(p)
            if m.split(".")[0] in ("jax", "jaxlib", "repro")]
