@@ -33,9 +33,11 @@ no phase catches its own failure:
               version and 256 against the float64 oracle, within
               ``F32_EVENT_RTOL`` (relative); the selective scan at
               (B 2, T 1000, Dc 256, S 16) in f32 and bf16 and at jamba's
-              (B 1, T 4096, Dc 8192, S 16) in bf16, within the doubled
-              tolerances of the reference's ``test_mamba_scan`` (f32
-              4e-5, bf16 4e-2); the f32 pair scores on the card against
+              (B 1, T 4096, Dc 8192, S 16) in bf16, there also with B
+              and C as the slices of one (1, 4096, 288) projection that
+              the prefill passes, each called twice for the same bits,
+              within the doubled tolerances of the reference's
+              ``test_mamba_scan`` (f32 4e-5, bf16 4e-2); the f32 pair scores on the card against
               their NumPy path within ``F32_SCORE_RTOL``;
 4. times    — CUDA-event times at the paths' shapes: kernel, plain
               version, one library call computing the same function
@@ -51,8 +53,10 @@ no phase catches its own failure:
               EpBsEsSw-8's 40,320, with the host ``BatchedEventSim`` as
               its yardstick (no single PyTorch call computes it); the
               selective scan at B 1 and B 8 x T 4096 x Dc 8192 x S 16
-              bf16 (no single PyTorch call computes it either); both
-              scans' device time per launch from the profiler;
+              bf16, with B and C contiguous and as the prefill's strided
+              slices (no single PyTorch call computes it either); both
+              scans' device time per launch from the profiler, the
+              selective scan's as a share of its bound;
 5. serving  — ``repro_torch.launch.serve.serve`` on qwen1.5-0.5b at full
               width (8 requests, bf16, seeded weights): every request
               finishes, and the launch counters show 49 RMSNorm and 24
@@ -332,13 +336,24 @@ def mamba_bound(B: int, T: int, Dc: int, S: int,
     return terms[by], ("bytes" if by == "bytes_ms" else "operations"), terms
 
 
-def scan_inputs(randn, B: int, T: int, Dc: int, S: int, dtype):
+#: jamba's dbc projection: dt_rank 256 columns, then B and C (S 16 each)
+DBC_DT_RANK = 256
+
+
+def scan_inputs(randn, B: int, T: int, Dc: int, S: int, dtype,
+                strided: bool = False):
     """The reference's test_mamba_scan recipe: x, dt = softplus(N) / 10,
-    bm, cm in ``dtype``; a = -exp(0.3 N) and d f32."""
+    bm, cm in ``dtype``; a = -exp(0.3 N) and d f32.  ``strided``: bm and
+    cm are the slices of one (B, T, 256 + 2 S) projection that
+    ``Mamba.fwd`` passes (a row stride of 288 at S 16)."""
     import torch.nn.functional as F
     x = randn(B, T, Dc, dtype=dtype)
     dt = (F.softplus(randn(B, T, Dc)) * 0.1).to(dtype)
-    bm, cm = randn(B, T, S, dtype=dtype), randn(B, T, S, dtype=dtype)
+    if strided:
+        dbc = randn(B, T, DBC_DT_RANK + 2 * S, dtype=dtype)
+        bm, cm = dbc[..., DBC_DT_RANK:-S], dbc[..., -S:]
+    else:
+        bm, cm = randn(B, T, S, dtype=dtype), randn(B, T, S, dtype=dtype)
     a = -torch.exp(randn(Dc, S) * 0.3)
     return x, dt, bm, cm, a, randn(Dc)
 
@@ -453,7 +468,7 @@ def main(argv=None) -> int:
                                      flash_attention_plain, launch_counts,
                                      mamba_scan, mamba_scan_plain,
                                      reset_launch_counts, rmsnorm_rows,
-                                     rmsnorm_rows_plain)
+                                     rmsnorm_rows_plain, scan_plan)
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
     from repro_torch.serve import Request, SchedulerPolicy, ServingEngine
@@ -642,14 +657,73 @@ def main(argv=None) -> int:
                    work=scan_work.setdefault(key, {}))
     print("[kernels] selective scan vs plain (tolerances of the reference's "
           "test_mamba_scan, doubled as it doubles them)")
-    for B, n_t, Dc, S, dt in ((2, 1000, 256, 16, torch.float32),
-                              (2, 1000, 256, 16, torch.bfloat16),
-                              (1, 4096, 8192, 16, torch.bfloat16)):
-        ins = scan_inputs(randn, B, n_t, Dc, S, dt)
-        compare(f"mamba_scan B={B} T={n_t} Dc={Dc} S={S} {dt}",
-                mamba_scan(*ins), mamba_scan_plain(*ins), dt,
+    # every call twice, for the same bits; jamba's shapes (B 1 takes the
+    # plan of 4 states a thread, B 8 that of 8) also with B and C as the
+    # slices of one (B, T, 288) projection that Mamba.fwd passes
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+
+    def mamba_plan_name(ins) -> str:
+        p = scan_plan(*ins[0].shape, ins[2].shape[-1], ins[0].dtype, sms)
+        return f"{p.states} states x {p.lanes} lanes"
+
+    def at_offset_1(t):
+        """``t`` as a contiguous view one element into its storage."""
+        v = torch.empty(t.numel() + 1, dtype=t.dtype,
+                        device=t.device)[1:].view(t.shape)
+        return v.copy_(t)
+
+    def check_mamba(label, ins, dt):
+        got = mamba_scan(*ins)
+        label += " (twice, same bits)"
+        require(torch.equal(got, mamba_scan(*ins)),
+                f"{label}: two calls on the same inputs differ")
+        compare(label, got, mamba_scan_plain(*ins), dt,
                 errs["mamba_scan"], tol=2 * TOL[dt])
+
+    for B, n_t, Dc, S, dt, strided in (
+            (2, 1000, 256, 16, torch.float32, False),
+            (2, 1000, 256, 16, torch.bfloat16, False),
+            (1, 4096, 8192, 16, torch.bfloat16, False),
+            (1, 4096, 8192, 16, torch.bfloat16, True),
+            (8, 4096, 8192, 16, torch.bfloat16, False),
+            (8, 4096, 8192, 16, torch.bfloat16, True)):
+        ins = scan_inputs(randn, B, n_t, Dc, S, dt, strided=strided)
+        check_mamba(f"mamba_scan B={B} T={n_t} Dc={Dc} S={S} {dt}"
+                    f"{' B/C strided' if strided else ''} "
+                    f"({mamba_plan_name(ins)})", ins, dt)
         del ins
+    torch.cuda.empty_cache()
+    # every plan the library builds, in both dtypes, at T 70 (no multiple
+    # of a chunk or step group): S 1..32 at B 2 x Dc 200 takes the plans
+    # of min(4, S) states a thread, B 33 x Dc 2048 at S 8..32 a grid wide
+    # enough for 8; then the staging's other paths: x and dt not 16-byte
+    # aligned or Dc * esize no multiple of 16 (scalar loads and stores, a
+    # channel tail inside a vector), and B and C rows 16-byte aligned but
+    # S * esize not (partial cp.async pieces)
+    plans = set()
+    for dt in (torch.float32, torch.bfloat16):
+        for B, Dc, S in ([(2, 200, S) for S in (1, 2, 4, 8, 16, 32)]
+                         + [(33, 2048, S) for S in (8, 16, 32)]):
+            ins = scan_inputs(randn, B, 70, Dc, S, dt)
+            plans.add(mamba_plan_name(ins))
+            check_mamba(f"mamba_scan B={B} T=70 Dc={Dc} S={S} {dt} "
+                        f"({mamba_plan_name(ins)})", ins, dt)
+        for Dc in (36, 30):
+            x, dtv, bm, cm, a, d = scan_inputs(randn, 2, 70, Dc, 16, dt)
+            check_mamba(f"mamba_scan B=2 T=70 Dc={Dc} S=16 {dt}, x and dt "
+                        "at storage offset 1", (at_offset_1(x),
+                                                at_offset_1(dtv), bm, cm, a,
+                                                d), dt)
+        S, col = (12, 8) if dt == torch.bfloat16 else (6, 4)
+        x, dtv, _, _, a, d = scan_inputs(randn, 2, 70, 200, S, dt)
+        dbc = randn(2, 70, 6 * col, dtype=dt)
+        check_mamba(f"mamba_scan B=2 T=70 Dc=200 S={S} {dt}, B and C at "
+                    f"columns {2 * col} and {4 * col} of a "
+                    f"{dbc.shape[-1]}-wide projection",
+                    (x, dtv, dbc[..., 2 * col:2 * col + S],
+                     dbc[..., 4 * col:4 * col + S], a, d), dt)
+    require(len(plans) == 9, f"the scan checks reach {sorted(plans)}, not "
+                             "the library's 9 plans")
     print("[kernels] f32 pair scores on the card vs their NumPy path")
     for key in ("gpu8", "gpu64", "oversized"):
         got = core.pair_score_matrix_batched(tables[key], device=dev)
@@ -876,24 +950,31 @@ def main(argv=None) -> int:
             lambda: event_scan.event_times(rows, table), "event_scan")
         del rows
     kern["event_scan"] = scan_t["EpBsEsSw-8_B40320"]
-    # the selective scan at jamba's shape, B 1 and B 8; plain one repeat
-    # of one call; device time per launch from a profile
+    # the selective scan at jamba's shape, B 1 and B 8, with B and C
+    # contiguous and as the prefill passes them (slices of the (B, T, 288)
+    # projection); plain one repeat of one call; device time per launch
+    # from a profile
     mamba_t = {}
-    for B in (1, 8):
-        ins = scan_inputs(randn, B, 4096, 8192, 16, torch.bfloat16)
+    for B, strided in ((1, False), (8, False), (1, True), (8, True)):
+        ins = scan_inputs(randn, B, 4096, 8192, 16, torch.bfloat16,
+                          strided=strided)
+        key = f"B{B}{'_strided' if strided else ''}"
         m_bound, m_by, m_terms = mamba_bound(B, 4096, 8192, 16,
                                              torch.bfloat16)
-        ms = timed(f"mamba_scan.B{B}", lambda: mamba_scan(*ins), n=20,
+        ms = timed(f"mamba_scan.{key}", lambda: mamba_scan(*ins), n=20,
                    warm=3)
-        plain = timed(f"mamba_scan.B{B}.plain",
-                      lambda: mamba_scan_plain(*ins), n=1, warm=0, repeats=1)
-        mamba_t[f"B{B}"] = {
+        plain = None if strided else timed(
+            f"mamba_scan.{key}.plain", lambda: mamba_scan_plain(*ins), n=1,
+            warm=0, repeats=1)
+        us = profiled_us(lambda: mamba_scan(*ins), "mamba_scan")
+        mamba_t[key] = {
             "ms": ms, "plain_ms": plain, "library_ms": None,
-            "device_us_per_launch": profiled_us(lambda: mamba_scan(*ins),
-                                                "mamba_scan"),
+            "device_us_per_launch": us,
+            "share_of_bound": m_bound * 1e3 / us,
             "bound_ms": m_bound, "bound_by": m_by, "bound_terms": m_terms,
             "shape": f"x, dt ({B}, 4096, 8192), bm, cm ({B}, 4096, 16) "
-                     "bf16, a (8192, 16), d (8192,) f32"}
+                     f"bf16{' (slices of a (B, 4096, 288) projection)' if strided else ''}, "
+                     "a (8192, 16), d (8192,) f32"}
         del ins
     torch.cuda.empty_cache()
     kern["mamba_scan"] = mamba_t["B1"]
@@ -937,10 +1018,13 @@ def main(argv=None) -> int:
               f"{t['work']}) [{t['shape']}]")
     for key, t in mamba_t.items():
         terms = ", ".join(f"{k} {v:.4g}" for k, v in t["bound_terms"].items())
+        plain = ("not timed" if t["plain_ms"] is None
+                 else f"{t['plain_ms']:.3f} ms")
         print(f"[times] mamba_scan {key} (n 20; plain n 1, one repeat): "
               f"kernel {t['ms']:.5f} ms, device "
-              f"{t['device_us_per_launch']:.1f} us per launch (profiler), "
-              f"plain {t['plain_ms']:.3f} ms, library — (no single PyTorch "
+              f"{t['device_us_per_launch']:.1f} us per launch (profiler, "
+              f"{t['share_of_bound']:.1%} of the bound), "
+              f"plain {plain}, library — (no single PyTorch "
               f"call computes the selective scan), bound "
               f"{t['bound_ms']:.4g} ms ({t['bound_by']}; {terms}; exps at "
               f"16 per SM per clock, 1.98 GHz) [{t['shape']}]")

@@ -136,6 +136,7 @@ def library() -> ctypes.CDLL:
         p, p, p, p, p, p, p,        # x, dt, bm, cm, a, d, y
         i, i, i, i,                 # B, T, Dc, S
         ll, ll, ll, ll,             # bm strides (b, t), cm strides (b, t)
-        i, p]                       # dtype, stream
+        i,                          # dtype
+        i, i, i, i, i, p]           # plan states, lanes, chunk, grid, smem; stream
     lib.repro_mamba_scan.restype = i
     return lib

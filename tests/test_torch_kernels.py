@@ -29,7 +29,8 @@ from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  launch_counts,
                                  mamba_scan, mamba_scan_plain, ops,
                                  reset_launch_counts, rmsnorm_rows,
-                                 rmsnorm_rows_plain)
+                                 rmsnorm_rows_plain, scan_plan)
+from repro_torch.kernels.mamba_scan import _plan as _scan_plan_of
 
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
@@ -769,9 +770,15 @@ def test_mamba_scan_plain_matches_reference(ref, B, T, Dc, S, dtype):
 
 
 #: the CPU shapes, chip_smoke's (B 2, T 1000, Dc 256, S 16), one row of
-#: jamba's width, and S = 1 and S = 32, the ends of the range
+#: jamba's width, S = 1 and S = 32, the ends of the range, and the shapes
+#: that reach the rest of the library's plans on an H100: 2 and 4 states
+#: a thread at S 2 and 4, and 8 (1, 2 and 4 lanes a channel) where
+#: B 33 x Dc 2048 makes the grid wide enough
 _SCAN_CARD_SHAPES = _SCAN_SHAPES + [(2, 1000, 256, 16), (1, 300, 8192, 16),
-                                    (1, 70, 40, 1), (2, 70, 24, 32)]
+                                    (1, 70, 40, 1), (2, 70, 24, 32),
+                                    (2, 70, 200, 2), (2, 70, 200, 4),
+                                    (33, 70, 2048, 8), (33, 70, 2048, 16),
+                                    (33, 70, 2048, 32)]
 
 
 @pytest.mark.cuda
@@ -789,6 +796,311 @@ def test_mamba_scan_kernel_matches_plain_on_card(cuda, B, T, Dc, S, dtype):
     tol = 2 * _TOL[dtype]
     torch.testing.assert_close(out, mamba_scan_plain(x, dt, bm, cm, a, d),
                                rtol=tol, atol=tol)
+
+
+# The selective scan's plan (``scan_plan``): the (channel, state) map,
+# the card's limits, and the kernel's arithmetic in a plain twin.
+
+#: the scan's plans: the library's choice on an H100 (132 SMs), its 8-
+#: and 4-state plans (forced by a card of 1 SM and of many), and the 2
+#: states a thread that ``tools/scan_turns.py --probe`` builds
+_SCAN_PLANS = {
+    "h100": lambda *shape: scan_plan(*shape, 132),
+    "8_states": lambda *shape: scan_plan(*shape, 1),
+    "4_states": lambda *shape: scan_plan(*shape, 10 ** 9),
+    "probe_2_states": lambda *shape: _scan_plan_of(2, *shape),
+}
+#: every T, Dc and S the scan tests use, and S over its range
+_SCAN_PLAN_SHAPES = (_SCAN_CARD_SHAPES
+                     + [(1, 4096, 8192, 16), (8, 4096, 8192, 16)]
+                     + [(1, 33, 300, S) for S in (1, 2, 3, 5, 8, 12, 16, 17,
+                                                  31, 32)])
+
+
+def _scan_plan_or_none(name, B, T, Dc, S, dtype):
+    """Plan ``name``, or None where the probe's states do not fit the card
+    (2 states a thread at S > 16 would need more than 227 KB)."""
+    try:
+        return _SCAN_PLANS[name](B, T, Dc, S, dtype)
+    except ValueError:
+        assert name == "probe_2_states", "the library's plans take S 1..32"
+        return None
+
+
+@pytest.mark.parametrize("B,T,Dc,S", _SCAN_PLAN_SHAPES)
+def test_scan_plan_covers_every_channel_and_state_once(B, T, Dc, S):
+    """Under each plan's map of scan threads (block x, thread tid, state
+    slot k) every (channel, state) of the scan has exactly one owner, and
+    every owner past Dc or S is padding."""
+    for name in _SCAN_PLANS:
+        plan = _scan_plan_or_none(name, B, T, Dc, S, torch.bfloat16)
+        if plan is None:
+            continue
+        K, L, ch = plan.states, plan.lanes, plan.block_channels
+        x, tid, k = np.meshgrid(np.arange(plan.grid[0]),
+                                np.arange(ch * L), np.arange(K),
+                                indexing="ij")
+        c = x * ch + tid // L
+        st = (tid % L) * K + k
+        live = (c < Dc) & (st < S)
+        seen = np.zeros((Dc, S), np.int64)
+        np.add.at(seen, (c[live], st[live]), 1)
+        assert (seen == 1).all()
+        assert K * L >= S and K * L == 1 << (S - 1).bit_length()
+        assert plan.grid[0] * ch >= Dc > (plan.grid[0] - 1) * ch
+
+
+@pytest.mark.parametrize("B,T,Dc,S", _SCAN_PLAN_SHAPES)
+def test_scan_plan_fits_the_card(B, T, Dc, S):
+    """The grid within CUDA's limits, shared memory within a block's
+    227 KB, 256 scan threads, a chunk of whole step groups and a tile of
+    4096 values, and each channel's lanes inside one warp, for every plan
+    and dtype."""
+    for name in _SCAN_PLANS:
+        for dtype in (torch.float32, torch.bfloat16):
+            plan = _scan_plan_or_none(name, B, T, Dc, S, dtype)
+            if plan is None:
+                continue
+            assert 1 <= plan.grid[0] < 2 ** 31 and plan.grid[1] == B <= 65535
+            assert plan.smem <= _SMEM_MAX and plan.threads == 256 + 128
+            assert plan.block_channels * plan.lanes == 256
+            assert plan.block_channels * plan.chunk == 4096
+            assert plan.chunk % plan.group == 0 and plan.group % 4 == 0
+            assert plan.group % plan.lanes == 0 and 32 % plan.lanes == 0
+            assert plan.states in (1, 2, 4, 8)
+
+
+def test_scan_plan_takes_eight_states_where_the_grid_is_wide():
+    """jamba's B 1 gets 4 states a thread (64 blocks of 8 states would
+    leave half of an H100's SMs idle), its B 8 gets 8; S < 8 caps the
+    states at S padded; the line between them moves with the SM count."""
+    assert scan_plan(1, 4096, 8192, 16, torch.bfloat16, 132).states == 4
+    assert scan_plan(8, 4096, 8192, 16, torch.bfloat16, 132).states == 8
+    assert scan_plan(8, 4096, 8192, 16, torch.bfloat16, 300).states == 4
+    assert scan_plan(1, 4096, 8192, 16, torch.bfloat16, 32).states == 8
+    assert scan_plan(64, 16, 32, 4, torch.bfloat16, 132).states == 4
+    assert scan_plan(1, 16, 32, 1, torch.bfloat16, 132).states == 1
+    # the card tests' shapes reach every plan the library builds
+    plans = {(p.states, p.lanes) for p in (
+        scan_plan(*shape, dtype, 132) for shape in _SCAN_CARD_SHAPES
+        for dtype in (torch.float32, torch.bfloat16))}
+    assert plans == {(1, 1), (2, 1), (4, 1), (4, 2), (4, 4), (4, 8),
+                     (8, 1), (8, 2), (8, 4)}
+
+
+def test_scan_plan_raises_where_the_wrapper_refuses():
+    for S in (0, 33, 64):
+        with pytest.raises(ValueError):
+            scan_plan(1, 16, 32, S, torch.float32, 132)
+    with pytest.raises(ValueError):
+        scan_plan(65536, 16, 32, 16, torch.float32, 132)
+    for B, T, Dc in ((0, 16, 32), (1, 0, 32), (1, 16, 0)):
+        with pytest.raises(ValueError):
+            scan_plan(B, T, Dc, 16, torch.float32, 132)
+    with pytest.raises(TypeError):
+        scan_plan(1, 16, 32, 16, torch.float16, 132)
+    with pytest.raises(ValueError):
+        scan_plan(1, 16, 32, 16, torch.float32, 0)
+    with pytest.raises(ValueError):
+        _scan_plan_of(3, 1, 16, 32, 16, torch.float32)
+
+
+def _transpose_sum(v):
+    """The kernel's transpose-reduce, lane by lane: v (..., L, N) -> (...,
+    L, N / L); at the level of partner offset o a lane whose bit o is set
+    keeps the upper half, the other the lower, each adding the partner's
+    copy of the half it keeps (keep + received)."""
+    L = v.shape[-2]
+    lanes = np.arange(L)
+    o = L // 2
+    while o >= 1:
+        h = v.shape[-1] // 2
+        up = ((lanes & o) != 0)[:, None]
+        give = np.where(up, v[..., :h], v[..., h:])
+        keep = np.where(up, v[..., h:], v[..., :h])
+        v = keep + give[..., lanes ^ o, :]
+        o //= 2
+    return v
+
+
+def _scan_twin(x, dt, bm, cm, a, d, plan):
+    """The kernel's arithmetic under ``plan`` in plain f32 NumPy: states
+    padded to K * L, dA = exp2(dt * (A log2 e)), each lane's partial y
+    (the skip D x on the channel's lane 0, then its K states in order) of
+    ``group`` steps, summed over the lanes by the transpose-reduce, lane li
+    ending with steps li * G / L onward of the group."""
+    B, T, Dc = x.shape
+    S = bm.shape[-1]
+    K, L, G = plan.states, plan.lanes, plan.group
+    SP, f32 = K * L, np.float32
+
+    def states(v):   # (..., S) -> (..., L, K), zeros past S
+        pad = np.zeros(v.shape[:-1] + (SP,), f32)
+        pad[..., :S] = v
+        return pad.reshape(v.shape[:-1] + (L, K))
+
+    a2 = states(a.astype(f32) * f32(np.log2(np.e)))          # (Dc, L, K)
+    dsk = np.zeros((Dc, L), f32)
+    dsk[:, 0] = d
+    bs, cs = states(bm.astype(f32)), states(cm.astype(f32))  # (B, T, L, K)
+    h = np.zeros((B, Dc, L, K), f32)
+    y = np.zeros((B, -(-T // G) * G, Dc), f32)
+    for t0 in range(0, T, G):
+        part = np.zeros((B, Dc, L, G), f32)
+        for i in range(min(G, T - t0)):   # past T: dt = x = B = C = 0
+            dv = dt[:, t0 + i, :, None].astype(f32)             # (B, Dc, 1)
+            xv = x[:, t0 + i, :, None].astype(f32)
+            acc = dsk[None] * xv
+            for k in range(K):
+                dA = np.exp2(dv * a2[None, :, :, k])
+                h[..., k] = h[..., k] * dA + (dv * xv) * bs[:, t0 + i, None, :, k]
+                acc = acc + h[..., k] * cs[:, t0 + i, None, :, k]
+            part[..., i] = acc
+        # lane li ends with steps li * G / L ..; in order they are the group
+        y[:, t0:t0 + G] = _transpose_sum(part).reshape(B, Dc, G).transpose(0, 2, 1)
+    return y[:, :T]
+
+
+@pytest.mark.parametrize("B,T,Dc,S", _SCAN_SHAPES + [(1, 70, 40, 1),
+                                                     (2, 70, 24, 32),
+                                                     (1, 65, 136, 16)])
+@pytest.mark.parametrize("plan_name", list(_SCAN_PLANS))
+def test_scan_twin_matches_reference(ref, B, T, Dc, S, plan_name):
+    """The kernel's arithmetic (the plan's lanes, exp2, the transpose-
+    reduce) against ``ref.mamba_scan_ref``, f32, at the reference test's
+    tolerance doubled (4e-5)."""
+    plan = _scan_plan_or_none(plan_name, B, T, Dc, S, torch.float32)
+    if plan is None:
+        return
+    x, dt, bm, cm, a, d = _scan_inputs(B, T, Dc, S)
+    want = np.asarray(ref.ref.mamba_scan_ref(
+        *(ref.jnp.asarray(v) for v in (x, dt, bm, cm, a, d))), np.float32)
+    got = _scan_twin(x, dt, bm, cm, a, d, plan)
+    np.testing.assert_allclose(got, want, rtol=2 * _TOL["float32"],
+                               atol=2 * _TOL["float32"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T", [1, 63, 65, 129])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_step_tails_on_card(cuda, T, dtype):
+    """T no multiple of the chunk (64 steps at S 16) or the step group
+    (4), at a Dc that leaves a partial channel block."""
+    x, dt, bm, cm, a, d = (torch.from_numpy(v).to(cuda)
+                           for v in _scan_inputs(2, T, 200, 16))
+    dt_ = getattr(torch, dtype)
+    x, dt, bm, cm = (v.to(dt_) for v in (x, dt, bm, cm))
+    tol = 2 * _TOL[dtype]
+    torch.testing.assert_close(mamba_scan(x, dt, bm, cm, a, d),
+                               mamba_scan_plain(x, dt, bm, cm, a, d),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_large_dt_on_card(cuda, dtype):
+    """dt up to ~300, where exp(dt A) underflows to 0 and h forgets its
+    past at once."""
+    x, dt, bm, cm, a, d = (torch.from_numpy(v).to(cuda)
+                           for v in _scan_inputs(1, 100, 64, 16, seed=9))
+    dt = dt * 1000.0
+    dt_ = getattr(torch, dtype)
+    x, dt, bm, cm = (v.to(dt_) for v in (x, dt, bm, cm))
+    want = mamba_scan_plain(x, dt, bm, cm, a, d)
+    tol = 2 * _TOL[dtype]
+    torch.testing.assert_close(mamba_scan(x, dt, bm, cm, a, d), want,
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_same_bits_twice_on_card(cuda, dtype):
+    x, dt, bm, cm, a, d = (torch.from_numpy(v).to(cuda)
+                           for v in _scan_inputs(2, 300, 520, 16))
+    dt_ = getattr(torch, dtype)
+    x, dt, bm, cm = (v.to(dt_) for v in (x, dt, bm, cm))
+    first = mamba_scan(x, dt, bm, cm, a, d)
+    assert torch.equal(first, mamba_scan(x, dt, bm, cm, a, d))
+
+
+def _scan_on_card(cuda, dtype, B, T, Dc, S, seed=6):
+    x, dt, bm, cm, a, d = (torch.from_numpy(v).to(cuda)
+                           for v in _scan_inputs(B, T, Dc, S, seed=seed))
+    dt_ = getattr(torch, dtype)
+    return [v.to(dt_) for v in (x, dt, bm, cm)] + [a, d]
+
+
+def _same_bits_and_plain(ins, dtype):
+    """The kernel twice for the same bits, then against the plain
+    version at twice the reference's tolerance."""
+    got = mamba_scan(*ins)
+    assert torch.equal(got, mamba_scan(*ins))
+    tol = 2 * _TOL[dtype]
+    torch.testing.assert_close(got, mamba_scan_plain(*ins), rtol=tol,
+                               atol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Dc", [36, 30])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_kernel_unaligned_x_on_card(cuda, Dc, dtype):
+    """x and dt as contiguous views one element into their storage, so
+    not 16-byte aligned, at a Dc whose rows are no whole 16-byte vectors
+    (but 36 in f32): the staging warps' scalar loads and stores and their
+    channel tail inside a vector."""
+    x, dt, bm, cm, a, d = _scan_on_card(cuda, dtype, 2, 70, Dc, 16)
+
+    def at_offset_1(t):
+        v = torch.empty(t.numel() + 1, dtype=t.dtype,
+                        device=t.device)[1:].view(t.shape)
+        return v.copy_(t)
+
+    xo, dto = at_offset_1(x), at_offset_1(dt)
+    assert xo.is_contiguous() and xo.data_ptr() % 16
+    _same_bits_and_plain((xo, dto, bm, cm, a, d), dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_mamba_scan_reads_partial_b_and_c_rows_on_card(cuda, dtype):
+    """B and C as slices of a projection whose rows and slices start on
+    16-byte boundaries while S * esize (24 bytes: S 12 in bf16, S 6 in
+    f32) is no multiple of 16: cp.async pieces that copy part of 16
+    bytes and zero the rest."""
+    S, col = (12, 8) if dtype == "bfloat16" else (6, 4)
+    x, dt, bm, cm, a, d = _scan_on_card(cuda, dtype, 2, 70, 200, S)
+    dbc = torch.zeros(2, 70, 6 * col, dtype=x.dtype, device=cuda)
+    dbc[..., 2 * col:2 * col + S] = bm
+    dbc[..., 4 * col:4 * col + S] = cm
+    bv, cv = dbc[..., 2 * col:2 * col + S], dbc[..., 4 * col:4 * col + S]
+    assert bv.data_ptr() % 16 == cv.data_ptr() % 16 == 0
+    _same_bits_and_plain((x, dt, bv, cv, a, d), dtype)
+    torch.testing.assert_close(mamba_scan(x, dt, bv, cv, a, d),
+                               mamba_scan(x, dt, bm, cm, a, d),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("variant", ["probe", "no_exp", "no_staging"])
+def test_scan_turns_variants_edit_the_source_once(variant):
+    """``tools/scan_turns.py --probe`` builds edited copies of
+    ``csrc/mamba_scan.cu``: each edit still finds its text exactly once,
+    and the edited copy differs from the source."""
+    import importlib
+    import sys
+    from pathlib import Path
+    tools = Path(__file__).resolve().parents[1] / "tools"
+    sys.path.insert(0, str(tools))
+    try:
+        turns = importlib.import_module("turns")
+        scan_turns = importlib.import_module("scan_turns")
+    finally:
+        sys.path.remove(str(tools))
+    src = (tools.parent / "src" / "repro_torch" / "csrc"
+           / "mamba_scan.cu").read_text()
+    flags, edits = scan_turns.VARIANTS[variant]
+    assert turns.edited(src, edits) != src
+    with pytest.raises(ValueError):
+        turns.edited(src + src, edits)
 
 
 @pytest.mark.cuda

@@ -39,10 +39,8 @@ Exits 1 where ``torch.cuda.is_available()`` is false.
 from __future__ import annotations
 
 import argparse
-import importlib.util
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -50,9 +48,9 @@ from pathlib import Path
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.profiler import ProfilerActivity, profile
 
-HERE = Path(__file__).resolve().parents[1]
+from turns import HERE, device_events, nvidia_smi, parent_library, time_ms
+
 HBM_BPS = 3.35e12
 
 #: (q shape (B, H, D), cache shape (B, T, Hkv, D), L), as chip_smoke.py §4
@@ -61,17 +59,6 @@ SHAPES = {"L128": ((1, 16, 64), (1, 512, 16, 64), 128),
           "L4096": ((1, 16, 64), (1, 32768, 16, 64), 4096),
           "L32768": ((1, 16, 64), (1, 32768, 16, 64), 32768),
           "jamba_L4096": ((8, 32, 128), (8, 4096, 8, 128), 4096)}
-
-
-def parent_entry(parent: Path):
-    """The earlier tree's ``repro_decode_attention``, built by its own
-    build module."""
-    spec = importlib.util.spec_from_file_location(
-        "parent_kernels_build",
-        parent / "src" / "repro_torch" / "kernels" / "build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.library().repro_decode_attention
 
 
 def caller(entry, plan):
@@ -99,53 +86,13 @@ def caller(entry, plan):
     return run
 
 
-def time_ms(fn, n: int, warm: int = 10, repeats: int = 5) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        runs.append(a.elapsed_time(b) / n)
-    return float(np.median(runs))
-
-
-def device_rows(prof):
-    """(kernel name, device µs, count), device-side events only."""
-    return [(e.key, e.self_device_time_total, e.count)
-            for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and e.self_device_time_total > 0]
-
-
-def profiled(fn, n: int = 20):
-    """Device rows of ``n`` calls of ``fn`` under the profiler."""
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(n):
-            fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
-    if not rows:
-        raise RuntimeError("the profiler saw no device time")
-    return rows
-
-
-def decode_us(rows) -> tuple[float, int]:
-    """Device µs per decode-attention launch in ``rows``, and the
+def decode_us(events) -> tuple[float, int]:
+    """Mean device µs per decode-attention launch in ``events``, and the
     launches."""
-    da = [r for r in rows if "decode_attention" in r[0]]
-    n = sum(r[2] for r in da)
-    if not n:
+    da = [t for name, t in events if "decode_attention" in name]
+    if not da:
         raise RuntimeError("the profile has no decode-attention launch")
-    return sum(r[1] for r in da) / n, n
+    return sum(da) / len(da), len(da)
 
 
 def main(argv=None) -> int:
@@ -163,15 +110,14 @@ def main(argv=None) -> int:
     from repro_torch.kernels.decode_attention import decode_plan
     from repro_torch.models import transformer as T
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
+    smi = nvidia_smi()
     print(f"[turns] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
     kernels = {"this": caller(build.library().repro_decode_attention,
                               decode_plan),
-               "earlier": caller(parent_entry(args.parent.resolve()),
-                                 decode_plan)}
+               "earlier": caller(
+                   parent_library(args.parent).repro_decode_attention,
+                   decode_plan)}
     print(f"[turns] kernels built in {time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
     gen = torch.Generator().manual_seed(0)
@@ -203,15 +149,16 @@ def main(argv=None) -> int:
         turns = {name: [] for name in kernels}
         for name in ("this", "earlier", "earlier", "this"):
             turns[name].append(time_ms(
-                lambda: kernels[name](q, k, v, ln), n))
-        dev_us = {name: decode_us(profiled(lambda: fn(q, k, v, ln)))[0]
+                lambda: kernels[name](q, k, v, ln), n, warm=10))
+        dev_us = {name: decode_us(device_events(lambda: fn(q, k, v, ln),
+                                                20))[0]
                   for name, fn in kernels.items()}
-        sdpa_rows = profiled(sdpa)
+        sdpa_rows = device_events(sdpa, 20)
         n_bytes = 2 * q.numel() * 2 + 2 * B * L * Hkv * D * 2 + 4 * B
         r = {"q": list(qs), "cache": list(cs), "L": L,
              "ms": {name: float(np.mean(t)) for name, t in turns.items()},
              "turns_ms": turns, "device_us": dev_us,
-             "sdpa_ms": time_ms(sdpa, n),
+             "sdpa_ms": time_ms(sdpa, n, warm=10),
              "sdpa_device_us": sum(x[1] for x in sdpa_rows) / 20,
              "bound_us": n_bytes / HBM_BPS * 1e6, "bound_by": "bytes",
              "max_abs_err": err, "same_bits_twice": same}
@@ -245,8 +192,8 @@ def main(argv=None) -> int:
                     torch.cuda.synchronize()
                     wall = (time.perf_counter() - t0) * 1e3 / 16
                     steps = iter(range(ctx - 16, ctx))
-                    rows = profiled(lambda: T.decode_step(
-                        params, cfg, tok, cache, next(steps)), n=16)
+                    rows = device_events(lambda: T.decode_step(
+                        params, cfg, tok, cache, next(steps)), 16)
                     us, launches = decode_us(rows)
                     busy = sum(x[1] for x in rows)
                     da = us * launches

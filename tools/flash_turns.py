@@ -43,11 +43,8 @@ Exits 1 where ``torch.cuda.is_available()`` is false.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import importlib.util
 import json
 import math
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -56,7 +53,9 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-HERE = Path(__file__).resolve().parents[1]
+from turns import (HERE, nvidia_smi, parent_library, start_variants,
+                   time_ms, variant_entry)
+
 
 #: (B, S, H, Hkv, D, causal, window), as ``chip_smoke.py`` §4 times them
 SHAPES = {"qwen": (1, 4096, 16, 16, 64, True, None),
@@ -64,43 +63,10 @@ SHAPES = {"qwen": (1, 4096, 16, 16, 64, True, None),
           "gqa_window": (1, 2048, 32, 8, 128, True, 1024),
           "hubert": (1, 1000, 16, 16, 80, False, None),
           "jamba": (8, 4096, 32, 8, 128, True, None)}
-ABLATIONS = {"one_part": 1, "no_exp": 2, "three_parts": 3}
-
-
-def parent_entry(parent: Path):
-    """The earlier tree's ``repro_flash_attention``, built by its own
-    build module."""
-    spec = importlib.util.spec_from_file_location(
-        "parent_kernels_build",
-        parent / "src" / "repro_torch" / "kernels" / "build.py")
-    mod = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(mod)
-    return mod.library().repro_flash_attention
-
-
-def start_ablations(build) -> dict:
-    """``nvcc`` of the checkout's flash source per ablation, all started
-    at once: {name: (process, library path)}."""
-    procs = {}
-    for name, mode in ABLATIONS.items():
-        out = HERE / "build" / "variants" / name / "libflash.so"
-        out.parent.mkdir(parents=True, exist_ok=True)
-        cmd = [build.find_nvcc(), *build.NVCC_FLAGS, "-shared",
-               f"-DREPRO_FA_ABLATE={mode}",
-               str(build.CSRC / "flash_attention.cu"), "-o", str(out)]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
-                       out)
-    return procs
-
-
-def ablation_entry(proc, path: Path, argtypes):
-    text, _ = proc.communicate()
-    if proc.returncode:
-        raise RuntimeError(f"nvcc failed on an ablation:\n{text}")
-    fn = ctypes.CDLL(str(path)).repro_flash_attention
-    fn.argtypes, fn.restype = argtypes, ctypes.c_int
-    return fn
+#: the ablated builds: csrc/flash_attention.cu with -DREPRO_FA_ABLATE=mode
+ABLATIONS = {name: ((f"-DREPRO_FA_ABLATE={mode}",), ())
+             for name, mode in (("one_part", 1), ("no_exp", 2),
+                                ("three_parts", 3))}
 
 
 def caller(entry, plan):
@@ -126,23 +92,6 @@ def caller(entry, plan):
     return run
 
 
-def time_ms(fn, n=20, warm=3, repeats=5) -> float:
-    for _ in range(warm):
-        fn()
-    torch.cuda.synchronize()
-    runs = []
-    for _ in range(repeats):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(n):
-            fn()
-        b.record()
-        b.synchronize()
-        runs.append(a.elapsed_time(b) / n)
-    return float(np.median(runs))
-
-
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, default=None,
@@ -158,20 +107,19 @@ def main(argv=None) -> int:
                                      flash_plan, ops)
     from repro_torch.models import transformer as T
 
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60, check=True).stdout.strip()
+    smi = nvidia_smi()
     print(f"[turns] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
     t0 = time.perf_counter()
-    procs = start_ablations(build)
+    procs = start_variants(build, "flash_attention.cu", ABLATIONS)
     lib = build.library()
     kernels = {"this": caller(lib.repro_flash_attention, flash_plan)}
     if args.parent is not None:
-        kernels["earlier"] = caller(parent_entry(args.parent.resolve()),
-                                    flash_plan)
+        kernels["earlier"] = caller(
+            parent_library(args.parent).repro_flash_attention, flash_plan)
     for name, (proc, path) in procs.items():
-        kernels[name] = caller(ablation_entry(
-            proc, path, lib.repro_flash_attention.argtypes), flash_plan)
+        kernels[name] = caller(variant_entry(
+            proc, path, "repro_flash_attention",
+            lib.repro_flash_attention.argtypes), flash_plan)
     print(f"[turns] kernels {list(kernels)} built in "
           f"{time.perf_counter() - t0:.1f} s")
     dev = torch.device("cuda")
