@@ -29,9 +29,12 @@ no phase catches its own failure:
               (8, 4096, 32 heads over 8, D 128; one KV head at a time);
               the event scan on
               4,096 random orders of seeded GTX580 tables (n 8, 16, 24,
-              64, and oversized blocks), every row against the plain
-              version and 256 against the float64 oracle, within
-              ``F32_EVENT_RTOL`` (relative); the selective scan at
+              64, and oversized blocks; n 12 on 5 units, n 16 on 40) and
+              of the serving device's (n 24, one unit), every row against
+              the plain version and 256 against the float64 oracle, within
+              ``F32_EVENT_RTOL`` (relative), each table called twice for
+              the same bits and the tables reaching every plan
+              (``EVENT_PLANS``); the selective scan at
               (B 2, T 1000, Dc 256, S 16) in f32 and bf16 and at jamba's
               (B 1, T 4096, Dc 8192, S 16) in bf16, there also with B
               and C as the slices of one (1, 4096, 288) projection that
@@ -51,7 +54,9 @@ no phase catches its own failure:
               prefill B 8 x S 4096 and at jamba's, with SDPA beside it;
               the event scan at n 64 x 4,096 orders and at
               EpBsEsSw-8's 40,320, with the host ``BatchedEventSim`` as
-              its yardstick (no single PyTorch call computes it); the
+              its yardstick (no single PyTorch call computes it), device
+              µs per launch, orders/s and ns per serial step (bursts,
+              completions and solo drains of the plain version's count); the
               selective scan at B 1 and B 8 x T 4096 x Dc 8192 x S 16
               bf16, with B and C contiguous and as the prefill's strided
               slices (no single PyTorch call computes it either); both
@@ -281,6 +286,22 @@ def check_scan(label: str, rows, table, es, n_ref: int, seed: int,
     require(ok, f"{label}: event scan disagrees with its plain version or "
             "the float64 oracle")
     return got, oracle, pick
+
+
+#: the event scan's plans and row widths: each lane's own arrays at the
+#: GTX580's 16 units and at 5 (8 lanes, three idle), shared memory at the
+#: serving device's 1 unit (32 rows a warp) and at 40 units (a lane walks
+#: two)
+EVENT_PLANS = {("private", 16), ("private", 8), ("shared", 1),
+               ("shared", 32)}
+
+
+def event_plan_of(es, table, n: int | None = None):
+    """``event_plan`` of ``table`` for rows of ``n`` kernels (all)."""
+    nbk, dem = es._pack_f32(table)[:2]
+    cfg = es.config_for_device(table.device)
+    C = es.cohort_slots(n or len(nbk), nbk, cfg.max_resident)
+    return es.event_plan(len(nbk), dem.shape[1], cfg.n_units, C)
 
 
 def misranked(space32, t32: float, space64, t64: float) -> np.ndarray:
@@ -645,16 +666,26 @@ def main(argv=None) -> int:
                 errs["flash_attention"])
         del q, k, v, want
     print("[kernels] event scan vs plain and the float64 oracle (relative "
-          "error of the makespan)")
+          "error of the makespan), each table under the plan it takes")
     tables = {name: scan_table(name) for name in
-              ("gpu8", "gpu16", "gpu24", "gpu64", "oversized")}
-    scan_rows, scan_work = {}, {}
+              ("gpu8", "gpu16", "gpu24", "gpu64", "oversized", "gpu12_u5",
+               "gpu16_u40", "serving")}
+    scan_rows, scan_work, event_plans = {}, {}, set()
     for i, (key, table) in enumerate(tables.items()):
         scan_rows[key] = torch.from_numpy(
             random_rows(len(table.kernels), 4096, 40 + i)).to(dev)
-        check_scan(f"event scan {key} (GTX580)", scan_rows[key], table,
-                   event_scan, 256, 50 + i, errs["event_scan"],
-                   work=scan_work.setdefault(key, {}))
+        plan = event_plan_of(event_scan, table)
+        event_plans.add((plan.name, plan.width))
+        got, _, _ = check_scan(
+            f"event scan {key} ({table.device.name}, U {table.device.n_units}"
+            f"; plan {plan.name}, {32 // plan.width} row(s) a warp)",
+            scan_rows[key], table, event_scan, 256, 50 + i,
+            errs["event_scan"], work=scan_work.setdefault(key, {}))
+        require(np.array_equal(
+            got, event_scan.event_times(scan_rows[key], table).cpu().numpy()),
+            f"event scan {key}: two calls on the same rows differ")
+    require(event_plans == EVENT_PLANS, f"the event-scan checks reach "
+            f"{sorted(event_plans)}, not {sorted(EVENT_PLANS)}")
     print("[kernels] selective scan vs plain (tolerances of the reference's "
           "test_mamba_scan, doubled as it doubles them)")
     # every call twice, for the same bits; jamba's shapes (B 1 takes the
@@ -933,6 +964,8 @@ def main(argv=None) -> int:
         host_ms = (time.perf_counter() - t0) * 1e3
         ms = timed(f"event_scan.{key}",
                    lambda: event_scan.event_times(rows, table), n=20, warm=3)
+        steps = work["head_steps"] + work["completions"] + work["solo"]
+        plan = event_plan_of(event_scan, table, n)
         scan_t[key] = {
             "ms": ms,
             "plain_ms": timed(f"event_scan.{key}.plain",
@@ -943,11 +976,17 @@ def main(argv=None) -> int:
             "host_batched_event_sim_ms": host_ms,
             "orders_per_s": B / ms * 1e3,
             "bound_ms": s_bound, "bound_by": s_by, "work": work,
+            "serial_steps_per_row": steps / B,
+            "plan": {"name": plan.name, **plan._asdict()},
             "shape": f"rows ({B}, {n}) int32, GTX580 table of "
                      f"{len(table.kernels)} kernels"}
-        # device time per launch, without the wrapper's host sync
-        scan_t[key]["device_us_per_launch"] = profiled_us(
-            lambda: event_scan.event_times(rows, table), "event_scan")
+        # device time per launch, without the wrapper's host sync; per
+        # serial step (bursts, completions and solo drains of all rows)
+        us = profiled_us(lambda: event_scan.event_times(rows, table),
+                         "event_scan")
+        scan_t[key]["device_us_per_launch"] = us
+        scan_t[key]["device_orders_per_s"] = B / us * 1e6
+        scan_t[key]["device_ns_per_step"] = us * 1e3 / steps
         del rows
     kern["event_scan"] = scan_t["EpBsEsSw-8_B40320"]
     # the selective scan at jamba's shape, B 1 and B 8, with B and C
@@ -1010,7 +1049,10 @@ def main(argv=None) -> int:
         print(f"[times] event_scan {key} (n 20; plain n 1, one repeat): "
               f"kernel {t['ms']:.5f} ms ({t['orders_per_s']:.4g} orders/s), "
               f"device {t['device_us_per_launch']:.1f} us per launch "
-              f"(profiler), "
+              f"(profiler; {t['device_orders_per_s']:.4g} orders/s, "
+              f"{t['device_ns_per_step']:.3f} ns per serial step at "
+              f"{t['serial_steps_per_row']:.2f} steps a row; plan "
+              f"{t['plan']['name']}, width {t['plan']['width']}), "
               f"plain {t['plain_ms']:.3f} ms, library — (no single PyTorch "
               f"call computes the event model), host BatchedEventSim "
               f"(NumPy float64 yardstick, one call) "

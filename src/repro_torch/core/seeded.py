@@ -12,6 +12,7 @@ and a ``random.Random``, so one seed gives the same profiles in both.
 
 from __future__ import annotations
 
+import dataclasses
 import random
 
 __all__ = ["FAMS", "gpu_kernels", "oversized", "adversarial",
@@ -83,20 +84,28 @@ def serving_profiles(C, rng: random.Random, n: int) -> list:
     return [it.profile() for it in items]
 
 
-#: the event scan's check tables: name -> (generator, n, seed).
-SCAN_TABLES = {"gpu8": (gpu_kernels, 8, 500),
-               "gpu16": (gpu_kernels, 16, 501),
-               "gpu24": (gpu_kernels, 24, 502),
-               "gpu64": (gpu_kernels, 64, 503),
-               "oversized": (oversized, 12, 600),
-               "serving": (serving_profiles, 24, 700)}
+#: the event scan's check tables: name -> (generator, n, seed, units);
+#: units, where given, replaces the GTX580's 16 (5: rows on 8 lanes with
+#: three idle; 40: more units than a warp has lanes).
+SCAN_TABLES = {"gpu8": (gpu_kernels, 8, 500, None),
+               "gpu16": (gpu_kernels, 16, 501, None),
+               "gpu24": (gpu_kernels, 24, 502, None),
+               "gpu64": (gpu_kernels, 64, 503, None),
+               "oversized": (oversized, 12, 600, None),
+               "serving": (serving_profiles, 24, 700, None),
+               "gpu12_u5": (gpu_kernels, 12, 504, 5),
+               "gpu16_u40": (gpu_kernels, 16, 505, 40)}
 
 
 def scan_table(name: str, C=None):
     """The ``ProfileTable`` of ``SCAN_TABLES[name]`` in package ``C``
     (this package's ``core`` by default), on the serving device for
-    "serving" and on the GTX580 otherwise."""
+    "serving" and on the GTX580 otherwise, with ``units`` units where
+    the entry gives them."""
     C = C or _core()
-    maker, n, seed = SCAN_TABLES[name]
+    maker, n, seed, units = SCAN_TABLES[name]
     dev = C.tpu.make_serving_device() if name == "serving" else C.GTX580
+    if units is not None:
+        dev = dataclasses.replace(dev, name=f"{dev.name}_x{units}",
+                                  n_units=units)
     return C.ProfileTable.build(maker(C, random.Random(seed), n), dev)

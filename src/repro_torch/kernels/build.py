@@ -128,10 +128,8 @@ def library() -> ctypes.CDLL:
         i, i, i, i, i, i, i, i,     # B, n, K, D, U, C, max_resident, sat_idx
         ll,                         # max events per row (<= 0: the budget)
         f, f, f, f, f, f,           # rates, saturations, fit slack, retire eps
-        p]                          # stream
+        i, i, ll, p]                # plan private, width, smem; stream
     lib.repro_event_scan.restype = i
-    lib.repro_event_scan_smem.argtypes = [i, i, i, i]
-    lib.repro_event_scan_smem.restype = ll
     lib.repro_mamba_scan.argtypes = [
         p, p, p, p, p, p, p,        # x, dt, bm, cm, a, d, y
         i, i, i, i,                 # B, T, Dc, S

@@ -16,9 +16,14 @@ cohort merge, per-unit roofline rates, completion events at
   CUDA ``rows`` and runs :func:`event_times_plain` only for rows on the
   CPU; on a CUDA tensor it launches or raises.  ``event_times.launches``
   counts the kernel's launches.  It is bound by float32 operations: a
-  row is a chain of data-dependent admission and completion steps, so
-  the kernel runs one warp per row with one lane per execution unit
-  (the source note in the ``.cu`` file has the details).
+  row is a chain of data-dependent steps, so the kernel cuts the steps
+  and fills the warps.  One step admits the whole head kernel (a burst:
+  each unit counts the blocks it can still take, and the round-robin
+  first fit follows in closed form, bit for bit the one-block loop's),
+  and a warp carries 32 / W rows of W lanes, a lane per unit (W = U
+  rounded up to a power of two, at most 32).  :func:`event_plan` picks
+  where the units' state lives, in arrays of each lane or in shared
+  memory (the source note in the ``.cu`` file has the details).
 * :func:`event_times_plain` is the same float32 scan in PyTorch,
   vectorised over the rows with masks for rows that are done.
 * :func:`event_times_reference` is the float64 oracle: the port's own
@@ -55,8 +60,8 @@ import torch
 
 from .build import library
 
-__all__ = ["F32_EVENT_RTOL", "F32_FIT_RTOL", "EventScanConfig",
-           "config_for_device", "cohort_slots", "event_times",
+__all__ = ["F32_EVENT_RTOL", "F32_FIT_RTOL", "EventPlan", "EventScanConfig",
+           "config_for_device", "cohort_slots", "event_plan", "event_times",
            "event_times_plain", "event_times_reference"]
 
 #: relative tolerance of float32 scan times vs the float64
@@ -70,6 +75,50 @@ F32_FIT_RTOL = 1e-5
 _RETIRE_EPS = 1e-6
 
 _EPS = 1e-12
+
+_WARPS = 4          # warps a block (csrc/event_scan.cu kWarps)
+_LANE_D, _LANE_C = 4, 8   # the private plan's largest D, C (kLaneD, kLaneC)
+
+
+class EventPlan(NamedTuple):
+    """The kernel's launch: ``private`` (each lane holds its unit's state
+    in arrays of its own) or shared memory; ``width`` lanes a row, so a
+    block of 4 warps carries ``rows`` rows; ``smem`` dynamic shared-memory
+    bytes a block (the kernel table, and the rows' state in the shared
+    plan)."""
+    private: bool
+    width: int
+    rows: int
+    smem: int
+
+    @property
+    def name(self) -> str:
+        return "private" if self.private else "shared"
+
+
+def event_plan(K: int, D: int, U: int, C: int) -> EventPlan:
+    """The plan for a table of K kernels in D dimensions on U units with
+    C cohort slots a unit: a row on ``width`` = U rounded up to a power
+    of two lanes (at most 32; past 32 units each lane walks several),
+    its units' state in each lane's arrays where U <= 32, D <= 4 and
+    C <= 8 (every GTX580 table), else in shared memory."""
+    if min(K, D, U, C) < 1:
+        raise ValueError(f"event scan: no plan for K={K}, D={D}, U={U}, "
+                         f"C={C}")
+    return _plan(U <= 32 and D <= _LANE_D and C <= _LANE_C,
+                 min(1 << (U - 1).bit_length(), 32), K, D, U, C)
+
+
+def _plan(private: bool, width: int, K: int, D: int, U: int,
+          C: int) -> EventPlan:
+    """The layout of a plan; the wrapper runs the ones :func:`event_plan`
+    picks, and the entry point takes any width from U rounded up to 32
+    (the turns tool times the others)."""
+    table = 4 * (3 * K + K * D + D)
+    row = 4 * (U * D + 3 * U + 4 * U * C)
+    rows = _WARPS * (32 // width)
+    return EventPlan(private, width, rows,
+                     table + (0 if private else rows * row))
 
 
 class EventScanConfig(NamedTuple):
@@ -171,7 +220,9 @@ def event_times_plain(rows: torch.Tensor, table, *,
     over all rows: ``admissions`` (blocks placed), ``tested_units``
     (units a sequential first fit tests: from the round-robin pointer to
     the winner for each admission, all ``U`` for the attempt that ends
-    each admission burst), ``completions`` (completion events),
+    each admission burst), ``head_steps`` (the kernel's bursts: every
+    head kernel admitted whole, and every attempt on a head that
+    blocks), ``completions`` (completion events),
     ``unit_events`` and ``slot_events`` (occupied units and cohort slots
     summed over the completion events) and ``solo`` (oversized heads
     drained) — what a bound on the scan's operations counts."""
@@ -213,8 +264,9 @@ def event_times_plain(rows: torch.Tensor, table, *,
               else torch.full((B,), int(max_events), dtype=i64, device=dev))
     bidx = torch.arange(B, device=dev)
     uidx = torch.arange(U, device=dev)
-    counts = dict.fromkeys(("admissions", "tested_units", "completions",
-                            "unit_events", "slot_events", "solo"), 0)
+    counts = dict.fromkeys(("admissions", "tested_units", "head_steps",
+                            "completions", "unit_events", "slot_events",
+                            "solo"), 0)
 
     def head_kid():
         return rows[bidx, head.clamp(max=n - 1)]
@@ -231,6 +283,7 @@ def event_times_plain(rows: torch.Tensor, table, *,
 
     while not bool(done.all()):
         # -- admission: one block per row and pass, while one fits
+        head0, trying = head, ~done
         while True:
             kid = head_kid()
             dk = dem[kid]                                     # (B, D)
@@ -269,6 +322,9 @@ def event_times_plain(rows: torch.Tensor, table, *,
             if work is not None:
                 counts["admissions"] += int(adm.sum())
                 counts["tested_units"] += int((win + 1)[adm].sum())
+        if work is not None:     # heads admitted whole, and the one blocked
+            counts["head_steps"] += int(
+                ((head - head0) + (head < n).long())[trying].sum())
         nres_tot = nres.sum(1)
         done |= (nres_tot == 0) & (head >= n)
         # -- oversized heads drain alone
@@ -343,31 +399,44 @@ def event_times(rows: torch.Tensor, table, *,
         raise ValueError("event_times: rows are not on the current CUDA "
                          "device")
     _check_rows(rows)
+    if rows.shape[0] == 0 or rows.shape[1] == 0:
+        return torch.zeros(rows.shape[0], dtype=torch.float32,
+                           device=rows.device)
+    return _launch(rows, table, max_events)
+
+
+def _launch(rows: torch.Tensor, table, max_events: int | None = None,
+            plan: EventPlan | None = None) -> torch.Tensor:
+    """The kernel on CUDA ``rows`` (B, n), B, n >= 1, under ``plan``
+    (:func:`event_plan`'s where None; the card tests pass the others
+    the entry point takes)."""
     nbk, dem, inst_b, mem_b, caps = _device_pack(table, rows.device)
     cfg = config_for_device(table.device)
     B, n = rows.shape
-    if B == 0 or n == 0:
-        return torch.zeros(B, dtype=torch.float32, device=rows.device)
     K, D = dem.shape
     C = cohort_slots(n, _pack_f32(table)[0], cfg.max_resident)
-    lib = library()
-    smem = lib.repro_event_scan_smem(K, D, cfg.n_units, C)
+    if bool((_pack_f32(table)[1] < 0).any()):
+        raise ValueError("event_times: the kernel takes non-negative "
+                         "demands only")
+    if plan is None:
+        plan = event_plan(K, D, cfg.n_units, C)
     optin = torch.cuda.get_device_properties(
         rows.device).shared_memory_per_block_optin
-    if smem > optin:
-        raise ValueError(f"event_times: {smem} bytes of shared memory per "
-                         f"block (K={K}, U={cfg.n_units}, C={C}) exceed "
+    if plan.smem > optin:
+        raise ValueError(f"event_times: {plan.smem} bytes of shared memory "
+                         f"per block (K={K}, U={cfg.n_units}, C={C}) exceed "
                          f"the card's {optin}")
     rows32 = rows.to(torch.int32).contiguous()
     out = torch.empty(B, dtype=torch.float32, device=rows.device)
     err = torch.zeros(1, dtype=torch.int32, device=rows.device)
-    rc = lib.repro_event_scan(
+    rc = library().repro_event_scan(
         rows32.data_ptr(), nbk.data_ptr(), dem.data_ptr(), inst_b.data_ptr(),
         mem_b.data_ptr(), caps.data_ptr(), out.data_ptr(), err.data_ptr(),
         B, n, K, D, cfg.n_units, C, cfg.max_resident, cfg.sat_idx,
         0 if max_events is None else int(max_events),
         cfg.compute_rate, cfg.mem_bw, cfg.sat_compute, cfg.sat_memory,
-        F32_FIT_RTOL, _RETIRE_EPS, torch.cuda.current_stream().cuda_stream)
+        F32_FIT_RTOL, _RETIRE_EPS, int(plan.private), plan.width, plan.smem,
+        torch.cuda.current_stream().cuda_stream)
     if rc:
         raise RuntimeError(f"event scan kernel launch failed: CUDA error {rc}")
     event_times.launches += 1

@@ -693,8 +693,11 @@ def test_event_scan_budget_and_bad_rows_raise():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("name", list(_SCAN_NAMES))
+@pytest.mark.parametrize("name",
+                         list(_SCAN_NAMES) + ["gpu12_u5", "gpu16_u40"])
 def test_event_scan_kernel_matches_plain_on_card(cuda, name):
+    """Every plan (``_SCAN_PLAN_TABLES`` below names the tables that reach
+    each) against the plain version and the float64 oracle."""
     table = scan_table(name)
     rows = _scan_rows(table, 512).to(cuda)
     before = event_times.launches
@@ -720,6 +723,362 @@ def test_event_scan_kernel_overrun_and_bad_rows_raise_on_card(cuda):
         event_times(rows + 100, table)
     torch.testing.assert_close(event_times(rows.long(), table),
                                event_times(rows, table), rtol=0, atol=0)
+
+
+@pytest.mark.cuda
+def test_event_scan_kernel_gives_the_same_bits_twice_on_card(cuda):
+    for name in _SCAN_PLAN_TABLES:
+        table = scan_table(name)
+        rows = _scan_rows(table, 300, seed=4).to(cuda)
+        assert torch.equal(event_times(rows, table), event_times(rows, table))
+
+
+#: a table for each plan and row width the wrapper picks: each lane's own
+#: arrays on 16 lanes (the GTX580) and on 8 lanes with three idle (5
+#: units); shared memory on 1 lane (the serving device, C 24) and on 32
+#: lanes that walk 40 units
+_SCAN_PLAN_TABLES = {"gpu16": ("private", 16), "gpu12_u5": ("private", 8),
+                     "serving": ("shared", 1), "gpu16_u40": ("shared", 32)}
+
+
+def _table_plan(table, n=None):
+    nbk, dem = event_scan._pack_f32(table)[:2]
+    cfg = event_scan.config_for_device(table.device)
+    C = event_scan.cohort_slots(n or len(table.kernels), nbk,
+                                cfg.max_resident)
+    return event_scan.event_plan(len(nbk), dem.shape[1], cfg.n_units, C)
+
+
+def test_event_plan_tables_reach_every_plan():
+    """The card tests' and ``chip_smoke.py``'s tables reach each plan at
+    the widths above; every GTX580 table of ``SCAN_TABLES`` takes the
+    private plan."""
+    for name, (kind, width) in _SCAN_PLAN_TABLES.items():
+        plan = _table_plan(scan_table(name))
+        assert (plan.name, plan.width) == (kind, width)
+        assert plan.rows == 4 * (32 // width)
+    for name in ("gpu8", "gpu16", "gpu24", "gpu64", "oversized"):
+        assert _table_plan(scan_table(name)).private
+    assert event_scan.event_plan(5, 4, 32, 8).private
+    assert not event_scan.event_plan(5, 5, 32, 8).private
+    assert not event_scan.event_plan(5, 4, 32, 9).private
+    assert not event_scan.event_plan(5, 4, 33, 8).private
+    with pytest.raises(ValueError):
+        event_scan.event_plan(5, 3, 0, 8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,private", [
+    (name, private) for name, (kind, _) in _SCAN_PLAN_TABLES.items()
+    for private in ((True, False) if kind == "private" else (False,))])
+@pytest.mark.parametrize("wide", [False, True])
+def test_event_scan_every_layout_matches_plain_on_card(cuda, name, private,
+                                                       wide):
+    """Every layout the entry point takes on these tables (each lane's
+    arrays where U, D and C allow, else shared memory; a row on U rounded
+    up or on all 32 lanes) gives the wrapper's plan's bits, which hold the
+    plain version within ``F32_EVENT_RTOL``."""
+    table = scan_table(name)
+    plan = _table_plan(table)
+    nbk, dem = event_scan._pack_f32(table)[:2]
+    cfg = event_scan.config_for_device(table.device)
+    C = event_scan.cohort_slots(len(nbk), nbk, cfg.max_resident)
+    layout = event_scan._plan(private, 32 if wide else plan.width, len(nbk),
+                              dem.shape[1], cfg.n_units, C)
+    rows = _scan_rows(table, 257, seed=5).to(cuda)
+    got = event_scan._launch(rows, table, None, layout)
+    assert torch.equal(got, event_times(rows, table))
+    torch.testing.assert_close(got, event_times_plain(rows, table),
+                               rtol=event_scan.F32_EVENT_RTOL, atol=0)
+
+
+# --------------------------------------------------------------------------
+# A NumPy twin of the event-scan kernel's burst admission
+# --------------------------------------------------------------------------
+
+_F32 = np.float32
+
+
+def _twin_state(U, D, C):
+    return {"used": np.zeros((U, D), _F32), "nres": np.zeros(U, np.int64),
+            "kid": np.full((U, C), -1, np.int64),
+            "nb": np.zeros((U, C), np.int64), "fr": np.zeros((U, C), _F32),
+            "ta": np.full((U, C), -1, _F32)}
+
+
+def _twin_commit(st, u, m, kid, dk, t):
+    """m blocks of kernel ``kid`` on unit u at instant t: m adds of dk in
+    sequence, then the cohort of this kernel admitted at this instant
+    grows, else the first free slot opens.  False where none is free."""
+    for _ in range(m):
+        st["used"][u] = st["used"][u] + dk
+    st["nres"][u] += m
+    nb, kd, ta = st["nb"][u], st["kid"][u], st["ta"][u]
+    free = -1
+    for c in range(len(nb)):
+        if nb[c] > 0:
+            if kd[c] == kid and ta[c] == t:
+                nb[c] += m
+                return True
+        elif free < 0:
+            free = c
+    if free < 0:
+        return False
+    kd[free], nb[free], st["fr"][u, free], ta[free] = kid, m, _F32(1), t
+    return True
+
+
+def _twin_caps(st, dk, lim, max_res, bleft):
+    """The kernel's ``unit_cap``: per unit and dimension the running
+    float32 sum of the one-block loop's fit tests, at most
+    min(max_res - nres, bleft) blocks."""
+    U, D = st["used"].shape
+    cap = np.zeros(U, np.int64)
+    for u in range(U):
+        m = max(min(max_res - int(st["nres"][u]), bleft), 0)
+        for d in range(D):
+            acc, j = st["used"][u, d], 0
+            if dk[d] == 0:
+                j = m if acc <= lim[d] else 0
+            else:
+                while j < m:
+                    acc = _F32(acc + dk[d])
+                    if not acc <= lim[d]:
+                        break
+                    j += 1
+            m = j
+        cap[u] = m
+    return cap
+
+
+def _twin_burst(st, kid, dk, lim, max_res, bleft, rr, t):
+    """One burst of the kernel: the caps, the pass P whose sum of
+    min(cap, P) first covers bleft (binary search), min(cap, P - 1)
+    blocks a unit and one more for the first r units with cap >= P in
+    cyclic order from rr.  Returns (blocks placed, new rr, slots ok)."""
+    U = len(st["nres"])
+    cap = _twin_caps(st, dk, lim, max_res, bleft)
+    tot = int(cap.sum())
+    if tot == 0:
+        return 0, rr, True
+    if tot <= bleft:
+        P = int(cap.max())
+        r = int((cap >= P).sum())
+    else:
+        lo, hi = 1, int(cap.max())
+        while lo < hi:
+            mid = (lo + hi) // 2
+            if int(np.minimum(cap, mid).sum()) >= bleft:
+                hi = mid
+            else:
+                lo = mid + 1
+        P = lo
+        r = bleft - int(np.minimum(cap, P - 1).sum())
+    take = np.minimum(cap, P - 1)
+    seen = last = 0
+    for o in range(U):
+        u = (rr + o) % U
+        if cap[u] >= P:
+            if seen < r:
+                take[u] += 1
+                last = u
+            seen += 1
+    ok = True
+    for u in np.flatnonzero(take):
+        ok &= _twin_commit(st, u, int(take[u]), kid, dk, t)
+    return min(tot, bleft), (last + 1) % U, ok
+
+
+def _twin_first_fit(st, kid, dk, lim, max_res, bleft, rr, t):
+    """The one-block loop the burst replaces: each block to the first
+    unit, in round-robin order from rr, with a resident slot and room in
+    every dimension (float32 used + dk <= lim)."""
+    U = len(st["nres"])
+    placed, ok = 0, True
+    while placed < bleft:
+        fits = (st["nres"] + 1 <= max_res) & (st["used"] + dk <= lim).all(1)
+        if not fits.any():
+            break
+        u = int(np.flatnonzero(np.roll(fits, -rr))[0] + rr) % U
+        ok &= _twin_commit(st, u, 1, kid, dk, t)
+        rr = (u + 1) % U
+        placed += 1
+    return placed, rr, ok
+
+
+def _event_twin(row, table):
+    """One row of the kernel in float32 NumPy: bursts until the head
+    blocks, then a solo drain or a completion event (every unit's slots
+    summed in slot order, one division per unit for its next retirement),
+    until done.  Returns (time, bursts)."""
+    nbk, dem, inst, mem = event_scan._pack_f32(table)
+    cfg = event_scan.config_for_device(table.device)
+    caps = np.asarray(cfg.caps, _F32)
+    lim = caps + (caps * _F32(event_scan.F32_FIT_RTOL) + _F32(1e-12))
+    U, D, n = cfg.n_units, len(caps), len(row)
+    C = event_scan.cohort_slots(n, nbk, cfg.max_resident)
+    st = _twin_state(U, D, C)
+    rates = (_F32(cfg.compute_rate), _F32(cfg.mem_bw))
+    sats = (_F32(cfg.sat_compute), _F32(cfg.sat_memory))
+    eps, sat = _F32(1e-12), cfg.sat_idx
+
+    def effs(occ):
+        if sat < 0:
+            return _F32(1), _F32(1)
+        return tuple(np.maximum(np.minimum(_F32(1), occ / s), eps)
+                     for s in sats)
+
+    t, head, rr, bleft, bursts = _F32(0), 0, 0, int(nbk[row[0]]), 0
+    while True:
+        while head < n:
+            bursts += 1
+            kid = int(row[head])
+            placed, rr, ok = _twin_burst(st, kid, dem[kid], lim,
+                                         cfg.max_resident, bleft, rr, t)
+            assert ok
+            bleft -= placed
+            if bleft:
+                break
+            head += 1
+            bleft = int(nbk[row[head]]) if head < n else 0
+        if st["nres"].sum() == 0:
+            if head >= n:
+                return t, bursts
+            kid = int(row[head])
+            ec, em = effs(dem[kid, sat])
+            t1 = max(inst[kid] / (rates[0] * ec), mem[kid] / (rates[1] * em))
+            t = _F32(t + _F32(np.ceil(_F32(bleft) / _F32(U))) * t1)
+            head += 1
+            bleft = int(nbk[row[head]]) if head < n else 0
+            continue
+        occm = st["nb"] > 0
+        sc, sm = np.zeros(U, _F32), np.zeros(U, _F32)
+        for c in range(C):
+            nbf = st["nb"][:, c].astype(_F32)
+            k = st["kid"][:, c]
+            sc = np.where(occm[:, c], sc + inst[k] * nbf, sc)
+            sm = np.where(occm[:, c], sm + mem[k] * nbf, sm)
+        ec, em = effs(st["used"][:, sat])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            lam = np.minimum(rates[0] * ec / np.maximum(sc, eps),
+                             rates[1] * em / np.maximum(sm, eps))
+            # each unit's least fraction over its rate: the least of the
+            # cohorts' quotients, as rounding keeps the order
+            least = np.where(occm, st["fr"], np.inf).min(1)
+            dt = _F32((least / lam)[occm.any(1)].min())
+        t = _F32(t + dt)
+        st["fr"] = np.where(occm, st["fr"] - lam[:, None] * dt, st["fr"])
+        fin = occm & (st["fr"] <= _F32(event_scan._RETIRE_EPS))
+        for d in range(D):
+            s = np.zeros(U, _F32)
+            for c in range(C):
+                s = np.where(fin[:, c], s + dem[st["kid"][:, c], d]
+                             * st["nb"][:, c].astype(_F32), s)
+            st["used"][:, d] = st["used"][:, d] - s
+        st["nres"] -= np.where(fin, st["nb"], 0).sum(1)
+        st["nb"] = np.where(fin, 0, st["nb"])
+
+
+def _twin_table(name):
+    import repro_torch.core as core
+    if name in core.EXPERIMENTS:
+        return core.ProfileTable.build(core.experiment(name), core.GTX580)
+    return scan_table(name)
+
+
+def _twin_rows(table, B):
+    """B seeded orders and one that names kernel 0 three times and kernel
+    1 twice at the front (same-instant merges)."""
+    n = len(table.kernels)
+    rows = _scan_rows(table, B, seed=8).numpy()
+    rep = np.concatenate([[0, 0, 0, 1, 1], np.arange(n)])[:max(n, 5)]
+    return np.concatenate([rows, rep[None].astype(np.int32) % n])
+
+
+_TWIN_TABLES = ["gpu8", "gpu16", "gpu24", "gpu64", "oversized", "gpu12_u5",
+                "gpu16_u40", "EP-6-shm", "EP-6-grid", "BS-6-blk", "EpBs-6",
+                "EpBs-6-shm", "EpBsEsSw-8", "serving"]
+
+
+@pytest.mark.parametrize("name", _TWIN_TABLES)
+def test_event_twin_matches_plain(name):
+    """The burst twin against ``event_times_plain``: bit for bit on every
+    GTX580 table (16, 5 and 40 units) and the six experiments.  On the
+    serving device (one unit, C 24) within ``F32_EVENT_RTOL``: the plain
+    version's ``sum`` over 24 slots adds in another order than the
+    kernel's slot by slot."""
+    table = _twin_table(name)
+    rows = _twin_rows(table, 3 if name == "gpu64" else 6)
+    got = np.array([_event_twin(r, table)[0] for r in rows], _F32)
+    want = event_times_plain(torch.from_numpy(rows), table).numpy()
+    if name == "serving":
+        np.testing.assert_allclose(got, want, rtol=event_scan.F32_EVENT_RTOL,
+                                   atol=0)
+    else:
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("name", ["gpu8", "oversized", "serving",
+                                  "gpu16_u40", "EpBsEsSw-8"])
+def test_event_twin_head_steps_match_plain_count(name):
+    """``work["head_steps"]`` of the plain version counts the twin's
+    bursts: every head admitted whole and every attempt that blocks."""
+    table = _twin_table(name)
+    rows = _twin_rows(table, 6)
+    work = {}
+    event_times_plain(torch.from_numpy(rows), table, work=work)
+    assert work["head_steps"] == sum(_event_twin(r, table)[1] for r in rows)
+    assert work["head_steps"] >= len(rows)
+
+
+@settings(max_examples=80, deadline=None)
+@given(seed=st.integers(0, 2 ** 32 - 1), U=st.sampled_from([1, 5, 16, 40]),
+       D=st.integers(1, 4), C=st.sampled_from([1, 3, 8, 24]),
+       max_res=st.sampled_from([1, 2, 8, 64, 4096]),
+       bleft=st.one_of(st.integers(1, 12), st.integers(1, 300)),
+       rr=st.integers(0, 39),
+       zero_dims=st.booleans())
+def test_event_twin_burst_matches_first_fit(seed, U, D, C, max_res, bleft,
+                                            rr, zero_dims):
+    """One burst against the one-block first fit on random unit states:
+    the blocks placed, the pointer, ``used`` bit for bit, the resident
+    counts and the cohort slots.  Units sit a hair under or over their
+    room (the ``F32_FIT_RTOL`` slack decides), resident counts near
+    max_res, cohorts of the head kernel at this instant (a merge), and
+    blocks left past what fits (a blocked head)."""
+    rng = np.random.default_rng(seed)
+    rr %= U
+    caps = rng.choice([48.0, 1024.0, 32768.0, 4096.0 * 1024], D).astype(_F32)
+    lim = caps + (caps * _F32(event_scan.F32_FIT_RTOL) + _F32(1e-12))
+    dk = (caps * rng.choice([0.01, 0.1, 0.125, 0.3, 0.5], D)).astype(_F32)
+    if zero_dims:
+        dk[rng.random(D) < 0.5] = 0
+    kid, t = 3, _F32(rng.choice([0.0, 0.25]))
+    st_ = _twin_state(U, D, C)
+    for u in range(U):
+        room = rng.integers(0, 6, D)        # whole blocks of headroom ...
+        slack = rng.choice([-1.0, 0.0, 0.5, 1.0, 2.0], D)
+        # ... then a hair: in ulps of the limit's scale, in or past it
+        st_["used"][u] = (caps - room * dk
+                          + slack * caps * _F32(event_scan.F32_FIT_RTOL)
+                          ).clip(0).astype(_F32)
+        st_["nres"][u] = max_res - rng.integers(0, min(max_res, 9) + 1)
+        for c in range(C):
+            if rng.random() < 0.3 and st_["nres"][u] > 0:
+                st_["kid"][u, c] = rng.choice([kid, 1])
+                st_["nb"][u, c] = 1
+                st_["fr"][u, c] = _F32(rng.random())
+                st_["ta"][u, c] = rng.choice([t, _F32(0.5)])
+    a, b = ({k: v.copy() for k, v in st_.items()} for _ in range(2))
+    got = _twin_burst(a, kid, dk, lim, max_res, bleft, rr, t)
+    want = _twin_first_fit(b, kid, dk, lim, max_res, bleft, rr, t)
+    assert got[0] == want[0]
+    if want[2]:      # a full slot stops the one-block loop mid-burst
+        assert got[1:] == want[1:]
+        for k in a:
+            np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+    else:
+        assert not got[2]
 
 
 # --------------------------------------------------------------------------
@@ -1098,6 +1457,28 @@ def test_scan_turns_variants_edit_the_source_once(variant):
     src = (tools.parent / "src" / "repro_torch" / "csrc"
            / "mamba_scan.cu").read_text()
     flags, edits = scan_turns.VARIANTS[variant]
+    assert turns.edited(src, edits) != src
+    with pytest.raises(ValueError):
+        turns.edited(src + src, edits)
+
+
+def test_event_turns_registers_build_edits_the_source_once():
+    """``tools/event_turns.py`` builds its ``registers`` ablation from an
+    edited copy of ``csrc/event_scan.cu``: each edit still finds its text
+    exactly once, and the edited copy differs from the source."""
+    import importlib
+    import sys
+    from pathlib import Path
+    tools = Path(__file__).resolve().parents[1] / "tools"
+    sys.path.insert(0, str(tools))
+    try:
+        turns = importlib.import_module("turns")
+        event_turns = importlib.import_module("event_turns")
+    finally:
+        sys.path.remove(str(tools))
+    src = (tools.parent / "src" / "repro_torch" / "csrc"
+           / "event_scan.cu").read_text()
+    flags, edits = event_turns.VARIANTS["registers"]
     assert turns.edited(src, edits) != src
     with pytest.raises(ValueError):
         turns.edited(src + src, edits)

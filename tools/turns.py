@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import ctypes
 import importlib.util
+import re
 import subprocess
 import time
 from pathlib import Path
@@ -29,15 +30,41 @@ def nvidia_smi() -> str:
                           text=True, timeout=60, check=True).stdout.strip()
 
 
-def parent_library(parent: Path) -> ctypes.CDLL:
-    """The earlier tree's kernel library, built from its own sources by its
-    own ``kernels/build.py`` into ``<parent>/build/kernels``."""
+def parent_build(parent: Path):
+    """The earlier tree's ``kernels/build.py`` module, which builds that
+    tree's kernels from its own sources into ``<parent>/build/kernels``."""
     spec = importlib.util.spec_from_file_location(
         "parent_kernels_build",
         parent.resolve() / "src" / "repro_torch" / "kernels" / "build.py")
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
-    return mod.library()
+    return mod
+
+
+def parent_library(parent: Path) -> ctypes.CDLL:
+    """The earlier tree's kernel library (:func:`parent_build`'s)."""
+    return parent_build(parent).library()
+
+
+def ptxas_report(log: str, kernel: str) -> dict:
+    """Registers, stack frame and spill bytes of each entry function whose
+    mangled name holds ``kernel``, from a build's ``-Xptxas -v`` log."""
+    out = {}
+    for part in log.split("Compiling entry function '")[1:]:
+        name = part.split("'", 1)[0]
+        if kernel not in name:
+            continue
+        used = re.search(r"Used (\d+) registers", part)
+        frame = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", part)
+        out[name] = {"registers": int(used.group(1)) if used else None,
+                     "stack_frame_bytes": int(frame.group(1)) if frame
+                     else None,
+                     "spill_store_bytes": int(frame.group(2)) if frame
+                     else None,
+                     "spill_load_bytes": int(frame.group(3)) if frame
+                     else None}
+    return out
 
 
 def edited(text: str, edits) -> str:
@@ -71,8 +98,10 @@ def start_variants(build, source: str, variants: dict) -> dict:
 
 
 def variant_entry(proc, path: Path, symbol: str, argtypes):
-    """Entry point ``symbol`` of a variant build, once ``nvcc`` is done."""
+    """Entry point ``symbol`` of a variant build, once ``nvcc`` is done;
+    the compiler's report goes to ``build.log`` beside the library."""
     text, _ = proc.communicate()
+    (path.parent / "build.log").write_text(text)
     if proc.returncode:
         raise RuntimeError(f"nvcc failed on a variant build:\n{text}")
     fn = getattr(ctypes.CDLL(str(path)), symbol)
