@@ -15,18 +15,24 @@ no phase catches its own failure:
 3. kernels  — each kernel against its plain PyTorch version on the card,
               within f32 2e-5 / bf16 2e-2 (the reference's
               ``tests/test_kernels.py``): RMSNorm at the serving path's
-              row and the forward's 32,768 rows, decode attention at the
+              row and the forward's 32,768 rows, and at deepseek-v2's
+              widths 512, 1536 and 5120 over 4,096 rows (twice, for the
+              same bits), decode attention at the
               serving path's shapes and a GQA shape, at qwen's heads on a
               32,768-slot cache at seven lengths around tile and cluster
               boundaries, at jamba's (B 8, T 4096, 32 heads over 8, D 128)
-              with a ragged batch whose length-0 row must be exactly zero
-              and on a strided view of a larger cache (its contiguous
-              copy's bits), each called twice for the same bits; flash
+              with a ragged batch whose length-0 row must be exactly zero,
+              at mixtral's (B 1, 32 heads over 8, D 128, a 512-slot cache)
+              at fifteen lengths from 1 to 512, and on a strided view of
+              a larger cache (its contiguous copy's bits), each called
+              twice for the same bits; flash
               attention at qwen's, a windowed GQA and hubert's (odd S)
               shapes and, in
               bf16, at qwen's prefill shapes B 8 x S 4096 and B 1 x S
-              32768 (the latter held one head at a time) and jamba's
-              (8, 4096, 32 heads over 8, D 128; one KV head at a time);
+              32768 (the latter held one head at a time), jamba's
+              (8, 4096, 32 heads over 8, D 128) and mixtral's (1, 8192,
+              32 heads over 8, D 128, window 4096), these two one KV head
+              at a time;
               the event scan on
               4,096 random orders of seeded GTX580 tables (n 8, 16, 24,
               64, and oversized blocks; n 12 on 5 units, n 16 on 40) and
@@ -49,7 +55,10 @@ no phase catches its own failure:
               and 32,768 (a 32,768-slot cache) and jamba's B 8 shape at
               L 4096, its and SDPA's device µs per call from the profiler;
               RMSNorm's and ``F.rms_norm``'s device µs at 1 x 1024,
-              32,768 x 1024 and 32,768 x 4096 rows;
+              32,768 x 1024, 32,768 x 4096 and 4,096 x 512, 1536 and
+              5120 rows, each beside its bytes bound, the calls rotating
+              over inputs that span twice the L2 (one row stays
+              L2-resident);
               flash attention at the three shapes above, at qwen's
               prefill B 8 x S 4096 and at jamba's, with SDPA beside it;
               the event scan at n 64 x 4,096 orders and at
@@ -80,10 +89,14 @@ no phase catches its own failure:
               decode replay of a 64-token prompt (kernel 3 against
               kernel 2); ``forward`` of hubert-xlarge at full width
               (48 flash launches, finite);
-9. card/CPU — the qwen, jamba and mixtral smoke configs in f32 on the
-              card and on the CPU (plain versions) from the same seeded
-              weights, TF32 off: served tokens identical and logits within
-              1e-3, and ``prefill_logits`` within 1e-3;
+9. card/CPU — the qwen, jamba, mixtral and deepseek smoke configs in
+              f32 on the card and on the CPU (plain versions) from the
+              same seeded weights, TF32 off: served tokens identical and
+              replayed logits within 1e-3 (deepseek's in an f32 cache,
+              and within 1e-2 in its bf16 one), and ``prefill_logits``
+              within 1e-3; the ``respect_deps`` engine on qwen, mixtral
+              and deepseek: tokens identical on both devices and equal
+              to the flat path's, rounds and modelled time equal;
 10. design space — the paper's Fig. 1 / Table 3 protocol: for each of
               the six experiments on the GTX580 model, every launch order
               (720, or 40,320 for EpBsEsSw-8) plus Algorithm 1's and the
@@ -111,8 +124,36 @@ no phase catches its own failure:
               (decode is the plain recurrence, as in the reference);
 14. jamba f32 — the same weights cast to f32 (TF32 off):
               ``prefill_logits`` at B 1 x S 512 through the kernels
-              against ``impl="xla"``, within 1e-3 with the same argmax.
+              against ``impl="xla"``, within 1e-3 with the same argmax;
+15. deepseek — deepseek-v2-236b at full width, depth cut to 8 layers
+              (one dense, seven MoE; bf16, drawn on the card from seed
+              0, jamba's weights freed first): ``prefill_logits`` at
+              B 1 x S 4096 (``blockwise_sdpa``) and B 4 x S 1024
+              (``sdpa``), exactly 33 RMSNorm and no flash launch per
+              call, finite logits, ms per call beside the operations
+              bound, prompt tokens/s, peak memory and a profiled call
+              (the MLA attention einsums' device share);
+16. serve-deepseek — the same model through ``ServingEngine`` on §5's
+              requests: every request finishes, 33 RMSNorm and no
+              decode-attention launch per ``decode_step``, ms per step
+              beside the weight-read floor, and a decode profile (the
+              device's busy share);
+17. deepseek f32 — depth 2 in f32 (TF32 off): ``prefill_logits``
+              (``MLA.fwd``) on a 64-token prompt against the replay into
+              an f32 cache (the absorbed ``MLA.decode``), within 1e-3
+              with the same argmax, ``capacity_factor`` raised only
+              until the forward drops no token;
+18. mixtral — mixtral-8x7b at full width, depth cut to 16 layers:
+              ``prefill_logits`` at B 1 x S 8192 (the 4,096 window
+              active), exactly 16 flash and 33 RMSNorm launches per
+              call, ms beside the operations bound; the same model
+              through ``ServingEngine`` on §5's requests as in §16:
+              every request finishes, exactly 16 decode-attention and 33
+              RMSNorm launches a step, ms per step beside the weight-read
+              floor, and a decode profile.
 
+The kernels' record counts each kernel's launches on the main paths:
+the decode steps of §5, §16 and §18 and the prefills of §7 and §18.
 The last lines are the kernels' JSON record, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes a
 fuller JSON report (every timing repeat, the profiles' top kernels).
@@ -214,18 +255,21 @@ def device_rows(prof) -> list[tuple[str, float, int]]:
     return rows
 
 
-def profiled(block, tries: int = 5):
+def profiled(block, tries: int = 5, on_prof=None):
     """``block()`` under ``torch.profiler``: (the device rows, what
     ``block`` returned, the sessions made).  In this long-lived process a
     session can record no device activity at all, seemingly at random;
     such a session is printed and ``block`` runs again after a pause,
-    ``tries`` sessions at most."""
+    ``tries`` sessions at most.  ``on_prof`` gets the session that
+    recorded, for readings other than the device rows."""
     for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             out = block()
         rows = device_rows(prof)
         if rows:
+            if on_prof is not None:
+                on_prof(prof)
             return rows, out, attempt + 1
         print(f"[profile] session {attempt + 1} recorded no device "
               "activity; again")
@@ -244,6 +288,54 @@ def flash_causal_ops(B: int, S: int, H: int, D: int, window=None,
     hi = s + 1 if causal else np.full(S, S)
     pairs = float(np.sum(hi - lo))
     return 4.0 * B * H * pairs * D
+
+
+def visible_pairs(S: int, window=None) -> float:
+    """(query, key) pairs a causal mask (with its sliding window) lets
+    through, for T = S."""
+    s = np.arange(S)
+    lo = np.zeros(S, np.int64) if window is None else \
+        np.maximum(s - window + 1, 0)
+    return float(np.sum(s + 1 - lo))
+
+
+def prefill_ops(cfg, params, B: int, S: int) -> float:
+    """Operations of ``prefill_logits`` at B x S, from the parameters'
+    shapes: 2 per weight per token for every projection (attention,
+    dense MLP, shared experts, router), 2 per weight per capacity slot
+    for the routed experts (static capacity computes every slot, filled
+    or not), the attention layers' products over the visible pairs (GQA
+    4 x head_dim per pair and head; MLA 2 x (qk 192 + v 128)), and the
+    head at the last position.  A Mamba layer counts its projections;
+    its scan's few operations a state are left out."""
+    from repro_torch.models.moe import MoE
+
+    def n_w(tree):   # projection weights only: no norm scale, no bias
+        return sum(v["w"].numel() if "w" in v else n_w(v)
+                   for v in tree.values() if isinstance(v, dict))
+
+    N = B * S
+    ops = 2.0 * B * cfg.d_model * cfg.vocab
+    if cfg.attn_type == "mla":
+        per_pair = 2 * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+                        + cfg.v_head_dim)
+    else:
+        per_pair = 4 * cfg.head_dim
+    for i, lp in enumerate(params["layers"]):
+        ops += 2.0 * N * n_w(lp["mixer"])
+        if cfg.layer_kind(i) == "attn":
+            ops += (B * cfg.n_heads * per_pair
+                    * visible_pairs(S, cfg.sliding_window))
+        if "mlp" in lp:
+            ops += 2.0 * N * n_w(lp["mlp"])
+        if "moe" in lp:
+            m = lp["moe"]
+            slots = cfg.n_experts * MoE.capacity(cfg, N)
+            per_slot = sum(w[0].numel() for w in m["experts"].values())
+            ops += 2.0 * slots * per_slot + 2.0 * N * m["router"]["w"].numel()
+            if "shared" in m:
+                ops += 2.0 * N * n_w(m["shared"])
+    return ops
 
 
 # -- the event scan ----------------------------------------------------------
@@ -492,6 +584,7 @@ def main(argv=None) -> int:
                                      rmsnorm_rows_plain, scan_plan)
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
+    from repro_torch.models.moe import MoE
     from repro_torch.serve import Request, SchedulerPolicy, ServingEngine
 
     import torch.nn.functional as F
@@ -557,7 +650,17 @@ def main(argv=None) -> int:
             s = randn(1024, scale=0.1, shift=1.0)
             compare(f"rmsnorm ({rows}, 1024) {dt}", rmsnorm_rows(x, s),
                     rmsnorm_rows_plain(x, s), dt, errs["rmsnorm"])
-    del x
+    # deepseek-v2's widths (§15): kv_norm 512, q_norm 1536, d_model 5120,
+    # at a prefill's 4,096 rows, twice for the same bits
+    for d in (512, 1536, 5120):
+        x = randn(4096, d, dtype=torch.bfloat16)
+        s = randn(d, scale=0.1, shift=1.0)
+        y = rmsnorm_rows(x, s)
+        compare(f"rmsnorm (4096, {d}) bf16", y, rmsnorm_rows_plain(x, s),
+                torch.bfloat16, errs["rmsnorm"])
+        require(torch.equal(y, rmsnorm_rows(x, s)),
+                f"rmsnorm (4096, {d}): two calls gave different bits")
+    del x, y
     print("[kernels] decode attention vs plain")
     cases = [((1, 16, 16, 512, 64), [1, 100, 128, 511, 512]),
              ((4, 32, 8, 4096, 128), [1, 1000, 4095, 4096]),
@@ -613,6 +716,17 @@ def main(argv=None) -> int:
         check_decode(f"decode_attention jamba B=8 H=32 Hkv=8 T=4096 D=128 "
                      f"L={lens} q={qdt} kv={kvdt} (twice, same bits; the "
                      f"length-0 row exactly zero)", q, k, v, ln, qdt)
+        # mixtral's decode (§18): 32 heads over 8, D 128, batch 1 on the
+        # served 512-slot cache, at lengths on both sides of a tile and of
+        # a deal over the cluster, through the longest served request's
+        q = randn(1, 32, 128, dtype=qdt)
+        k, v = (randn(1, 512, 8, 128, dtype=kvdt) for _ in range(2))
+        for L in (1, 31, 32, 33, 64, 79, 127, 128, 129, 159, 255, 256, 257,
+                  511, 512):
+            ln = torch.full((1,), L, dtype=torch.int32, device=dev)
+            check_decode(f"decode_attention mixtral B=1 H=32 Hkv=8 T=512 "
+                         f"D=128 L={L} q={qdt} kv={kvdt} (twice, same bits)",
+                         q, k, v, ln, qdt)
         big_k, big_v = (randn(2, 8192, 16, 64, dtype=kvdt) for _ in range(2))
         k, v = big_k[:, 100:4196, 4:12], big_v[:, 100:4196, 4:12]
         q = randn(2, 8, 64, dtype=qdt)
@@ -642,28 +756,31 @@ def main(argv=None) -> int:
                     flash_attention_plain(q, k, v, causal=causal,
                                           window=window),
                     dt, errs["flash_attention"])
-    # the prefill paths' shapes, bf16: qwen's two (§7) and jamba's B 8 x
-    # S 4096 at D 128, g 4 (§12).  qwen B 8 in one plain call (8.6 GB of
-    # f32 scores); B 1 x S 32768 (512 query tiles, KV walks up to 512
-    # tiles) in one kernel call, held one head at a time against the plain
-    # version on that head's strided views (4.3 GB of scores); jamba one KV
-    # head (four query heads) at a time (2.1 GB)
-    for B, S, H, Hkv, D in ((8, 4096, 16, 16, 64),
-                            (1, spec_32k.seq_len, 16, 16, 64),
-                            (8, 4096, 32, 8, 128)):
+    # the prefill paths' shapes, bf16: qwen's two (§7), jamba's B 8 x
+    # S 4096 at D 128, g 4 (§12) and mixtral's B 1 x S 8192 with its 4096
+    # window (§18).  qwen B 8 in one plain call (8.6 GB of f32 scores);
+    # B 1 x S 32768 (512 query tiles, KV walks up to 512 tiles) in one
+    # kernel call, held one head at a time against the plain version on
+    # that head's strided views (4.3 GB of scores); jamba and mixtral one
+    # KV head (four query heads) at a time (2.1 and 1.1 GB)
+    for B, S, H, Hkv, D, window in ((8, 4096, 16, 16, 64, None),
+                                    (1, spec_32k.seq_len, 16, 16, 64, None),
+                                    (8, 4096, 32, 8, 128, None),
+                                    (1, 8192, 32, 8, 128, 4096)):
         q = randn(B, S, H, D, dtype=torch.bfloat16)
         k, v = (randn(B, S, Hkv, D, dtype=torch.bfloat16) for _ in range(2))
         step = Hkv if H * S <= 16 * 4096 else 1   # KV heads per plain call
         g = H // Hkv
         want = torch.cat([flash_attention_plain(q[:, :, g * h:g * (h + step)],
                                                 k[:, :, h:h + step],
-                                                v[:, :, h:h + step])
+                                                v[:, :, h:h + step],
+                                                window=window)
                           for h in range(0, Hkv, step)], dim=2)
         compare(f"flash_attention B={B} S={S} H={H} Hkv={Hkv} D={D} "
-                f"causal=True window=None {torch.bfloat16} (a prefill "
+                f"causal=True window={window} {torch.bfloat16} (a prefill "
                 f"shape; plain {step} KV head(s) per call)",
-                flash_attention(q, k, v), want, torch.bfloat16,
-                errs["flash_attention"])
+                flash_attention(q, k, v, window=window), want,
+                torch.bfloat16, errs["flash_attention"])
         del q, k, v, want
     print("[kernels] event scan vs plain and the float64 oracle (relative "
           "error of the makespan), each table under the plan it takes")
@@ -793,19 +910,27 @@ def main(argv=None) -> int:
                 f"{[(r[0][:40], r[2]) for r in rows]} of {n}")
         return sum(r[1] for r in rows) / seen
 
-    def graph_us(fn, n: int = 50) -> float:
+    def graph_us(fn, n: int = 50, rotate=None) -> float:
         """Device µs per call of ``fn`` from CUDA events around the replay
         of a CUDA graph of ``n`` calls: the launches back to back, with no
-        host time between them and no profiler session."""
+        host time between them and no profiler session.  With ``rotate``
+        (a list of argument tuples) call i is ``fn(*rotate[i % len])``
+        and every call's output is kept until the replay ends, so no call
+        finds its input or output in L2 once the tuples span more than
+        it."""
+        args = rotate or [()]
+        outs = []
         side = torch.cuda.Stream()
         side.wait_stream(torch.cuda.current_stream())
         with torch.cuda.stream(side):
-            fn()
+            fn(*args[0])
         torch.cuda.current_stream().wait_stream(side)
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
-            for _ in range(n):
-                fn()
+            for i in range(n):
+                y = fn(*args[i % len(args)])
+                if rotate:
+                    outs.append(y)
         graph.replay()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
@@ -832,24 +957,38 @@ def main(argv=None) -> int:
         "shape": "x (1, 1024) bf16, scale (1024,) f32"}
 
     # RMSNorm's device time beside F.rms_norm's at one row (decode) and the
-    # prefills' rows (qwen 32,768 x 1024, jamba B 8 x S 4096 x 4096), each
-    # beside its bytes bound; device times of short calls come from CUDA
-    # graphs, which open no profiler session (tools/decode_turns.py gives
-    # the profiler's for decode attention and SDPA)
+    # prefills' rows (qwen 32,768 x 1024, jamba B 8 x S 4096 x 4096,
+    # deepseek's 4,096 rows at kv_norm's 512, q_norm's 1536 and d_model
+    # 5120), each beside its bytes bound; device times of short calls
+    # come from CUDA graphs, which open no profiler session
+    # (tools/decode_turns.py gives the profiler's for decode attention and
+    # SDPA).  The calls rotate over enough inputs to span twice the L2
+    # (at most one per call), so that a shape whose rotation spans it
+    # reads and writes HBM as its bound assumes; one row is L2-resident
+    # all the same, as a decode step's is
+    l2 = getattr(torch.cuda.get_device_properties(0), "L2_cache_size",
+                 50 << 20)
     rms_dev = {}
-    for rows, d in ((1, 1024), (32768, 1024), (32768, 4096)):
-        xr = randn(rows, d, dtype=torch.bfloat16)
+    for rows, d in ((1, 1024), (32768, 1024), (32768, 4096), (4096, 512),
+                    (4096, 1536), (4096, 5120)):
+        n_in = min(50, -(-2 * l2 // (rows * d * 2)))
+        xs = [randn(rows, d, dtype=torch.bfloat16) for _ in range(n_in)]
         sr = randn(d, scale=0.1, shift=1.0)
         sr_lib = sr.to(torch.bfloat16)
-        rb, rby = bound(xr.numel() * 2 * 2 + d * 4, 4 * xr.numel(),
+        rb, rby = bound(rows * d * 2 * 2 + d * 4, 4 * rows * d,
                         torch.bfloat16)
         rms_dev[f"{rows}x{d}"] = {
-            "kernel_device_us": graph_us(lambda: rmsnorm_rows(xr, sr)),
+            "kernel_device_us": graph_us(lambda xr: rmsnorm_rows(xr, sr),
+                                         rotate=[(xr,) for xr in xs]),
             "library_device_us": graph_us(
-                lambda: F.rms_norm(xr, (d,), sr_lib, 1e-6)),
+                lambda xr: F.rms_norm(xr, (d,), sr_lib, 1e-6),
+                rotate=[(xr,) for xr in xs]),
+            "inputs_rotated": n_in,
+            "rotation_bytes": n_in * rows * d * 2, "l2_bytes": l2,
             "bound_us": rb * 1e3, "bound_by": rby,
             "shape": f"x ({rows}, {d}) bf16, scale ({d},)"}
-        del xr
+        del xs
+        torch.cuda.empty_cache()
     kern["rmsnorm"]["device_us"] = rms_dev
 
     # decode attention: L 128 and 512 on a 512-slot cache (the serving
@@ -1035,10 +1174,15 @@ def main(argv=None) -> int:
               f"bound {t['bound_ms']:.3e} ms ({t['bound_by']}) "
               f"[{t['shape']}]")
     for key, t in rms_dev.items():
-        print(f"[times] rmsnorm {key} device (CUDA graph of 50 calls): "
-              f"kernel {t['kernel_device_us']:.2f} us per launch, "
+        warm = ("L2-resident" if t["rotation_bytes"] <= t["l2_bytes"]
+                else "past L2")
+        print(f"[times] rmsnorm {key} device (CUDA graph of 50 calls over "
+              f"{t['inputs_rotated']} input(s), {t['rotation_bytes']} bytes, "
+              f"{warm}): kernel {t['kernel_device_us']:.2f} us per launch, "
               f"F.rms_norm {t['library_device_us']:.2f} us per call, bound "
-              f"{t['bound_us']:.3f} us ({t['bound_by']}) [{t['shape']}]")
+              f"{t['bound_us']:.3f} us ({t['bound_by']}; the kernel at "
+              f"{t['bound_us'] / t['kernel_device_us']:.1%} of it) "
+              f"[{t['shape']}]")
     for key, t in att.items():
         print(f"[times] decode_attention {key} device (CUDA graph of 50 "
               f"calls): kernel {t['device_us']:.2f} us per launch, SDPA "
@@ -1345,9 +1489,19 @@ def main(argv=None) -> int:
     del params_h, frames, logits
 
     # 9. card vs CPU, smoke configs in f32 --------------------------------
+    # the flat engine on four archs; the dependency-aware one
+    # (respect_deps) on the three traced archs, whose tokens must be the
+    # flat path's.  MLA's decode rounds its softmax weights to the cache
+    # dtype (as the reference does), so on deepseek a bf16 cache turns a
+    # last-bit difference of the two devices' sums into a bf16 rounding
+    # flip: its replay is held at 1e-3 in an f32 cache and at 1e-2 in the
+    # bf16 one
     report["card_vs_cpu"] = {}
-    for arch in ("qwen1.5-0.5b", "jamba-v0.1-52b", "mixtral-8x7b"):
+    for arch in ("qwen1.5-0.5b", "jamba-v0.1-52b", "mixtral-8x7b",
+                 "deepseek-v2-236b"):
         cfg = get_config(arch, "smoke").replace(dtype="float32")
+        deps = arch != "jamba-v0.1-52b"
+        mla = cfg.attn_type == "mla"
         side = {}
         for where in ("cuda", "cpu"):
             params = T.init(cfg, seed=0, device=where)
@@ -1359,28 +1513,46 @@ def main(argv=None) -> int:
                                 policy=SchedulerPolicy(kind="symbiotic"))
             eng.submit(reqs)
             out = eng.run()
-            cache = T.init_cache(cfg, 1, 64, device=where)
-            lg = []
-            with torch.inference_mode():
+            out_d = None
+            if deps:
+                eng = ServingEngine(cfg, params, max_len=64,
+                                    policy=SchedulerPolicy(
+                                        kind="symbiotic", respect_deps=True))
+                eng.submit([Request(r.rid, r.prompt, max_new_tokens=8)
+                            for r in reqs])
+                out_d = eng.run()
+                require(out_d["outputs"] == out["outputs"],
+                        f"{arch} on {where}: respect_deps tokens differ "
+                        "from the flat path's")
+
+            def replay(dtype):
+                cache = T.init_cache(cfg, 1, 64, dtype, device=where)
+                lg = []
                 for pos, tok in enumerate(reqs[0].prompt.tolist() +
                                           out["outputs"][0][:-1]):
                     logits, cache = T.decode_step(
                         params, cfg, torch.tensor([tok], device=where),
                         cache, pos)
                     lg.append(logits.cpu())
+                return torch.cat(lg)
+            with torch.inference_mode():
+                lg = replay(torch.float32 if mla else torch.bfloat16)
+                lg16 = replay(torch.bfloat16) if mla else None
                 toks = torch.from_numpy(rng.integers(0, cfg.vocab,
                                                      size=(2, 48)))
                 pre = T.prefill_logits(params, cfg, toks.to(where)).cpu()
-            side[where] = (out, torch.cat(lg), pre)
-        (o_gpu, l_gpu, p_gpu), (o_cpu, l_cpu, p_cpu) = (side["cuda"],
-                                                        side["cpu"])
+            side[where] = (out, lg, pre, out_d, lg16)
+        ((o_gpu, l_gpu, p_gpu, d_gpu, l16_gpu),
+         (o_cpu, l_cpu, p_cpu, d_cpu, l16_cpu)) = side["cuda"], side["cpu"]
         diff = (l_gpu - l_cpu).abs().max().item()
         pdiff = (p_gpu - p_cpu).abs().max().item()
+        cache_kind = "f32" if mla else "bf16"
         print(f"[card/cpu] {arch} smoke: tokens identical: "
               f"{o_gpu['outputs'] == o_cpu['outputs']}; rounds "
               f"{o_gpu['rounds']} vs {o_cpu['rounds']}; max logit diff "
-              f"{diff:.3e} (bound 1e-3) over {l_gpu.shape[0]} positions; "
-              f"prefill_logits B 2 x S 48 max diff {pdiff:.3e} (bound 1e-3)")
+              f"{diff:.3e} (bound 1e-3, {cache_kind} cache) over "
+              f"{l_gpu.shape[0]} positions; prefill_logits B 2 x S 48 max "
+              f"diff {pdiff:.3e} (bound 1e-3)")
         require(o_gpu["outputs"] == o_cpu["outputs"],
                 f"{arch}: card and CPU tokens differ")
         require(o_gpu["rounds"] == o_cpu["rounds"] and
@@ -1389,10 +1561,31 @@ def main(argv=None) -> int:
         require(diff < 1e-3, f"{arch}: card and CPU logits differ by {diff}")
         require(pdiff < 1e-3,
                 f"{arch}: card and CPU prefill logits differ by {pdiff}")
-        report["card_vs_cpu"][arch] = {"max_logit_diff": diff,
-                                       "prefill_logits_max_diff": pdiff,
-                                       "positions": int(l_gpu.shape[0])}
-        del side, params
+        rec = {"max_logit_diff": diff, "replay_cache": cache_kind,
+               "prefill_logits_max_diff": pdiff,
+               "positions": int(l_gpu.shape[0])}
+        if mla:
+            diff16 = (l16_gpu - l16_cpu).abs().max().item()
+            print(f"[card/cpu] {arch} smoke: bf16-cache replay max logit "
+                  f"diff {diff16:.3e} (bound 1e-2)")
+            require(diff16 < 1e-2, f"{arch}: card and CPU logits differ by "
+                    f"{diff16} with a bf16 cache")
+            rec["max_logit_diff_bf16_cache"] = diff16
+        if deps:
+            print(f"[card/cpu] {arch} smoke respect_deps: tokens identical "
+                  f"on both devices and to the flat path's: "
+                  f"{d_gpu['outputs'] == d_cpu['outputs']}; rounds "
+                  f"{d_gpu['rounds']} vs {d_cpu['rounds']} (flat "
+                  f"{o_gpu['rounds']}); modelled_time_s equal: "
+                  f"{d_gpu['modelled_time_s'] == d_cpu['modelled_time_s']}")
+            require(d_gpu["outputs"] == d_cpu["outputs"]
+                    and d_gpu["rounds"] == d_cpu["rounds"]
+                    and d_gpu["modelled_time_s"] == d_cpu["modelled_time_s"]
+                    and d_gpu["schedule_cache"] == d_cpu["schedule_cache"],
+                    f"{arch}: respect_deps differs between card and CPU")
+            rec["respect_deps_rounds"] = d_gpu["rounds"]
+        report["card_vs_cpu"][arch] = rec
+        del side, params, eng
 
     # 10. the design space of the six experiments ------------------------
     print("[design_space] the paper's Fig. 1 / Table 3 protocol on the "
@@ -1462,127 +1655,117 @@ def main(argv=None) -> int:
               "identical to §5's")
     report["serve_refined"] = refined_rep
 
-    # 12. jamba at full width, one period of depth ------------------------
-    cfg_j = get_config("jamba-v0.1-52b", "full").replace(n_layers=8)
-    print("[jamba] jamba-v0.1-52b full width, depth cut from 32 to 8 layers "
-          "(one period: seven Mamba, one attention, four MoE), bf16, "
-          "weights drawn on the card from seed 0")
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    params = T.init(cfg_j, seed=0, device=dev, draw_device="cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    n_params_j = T.count_params(params)
-    require(n_params_j == 13_295_235_072, f"jamba depth-8 parameters "
-            f"{n_params_j}")
-    print(f"[jamba] init {init_s:.2f} s, {n_params_j} parameters "
-          f"({2 * n_params_j / 1e9:.2f} GB in bf16)")
-    jamba_rep = {"init_s": init_s, "n_params": n_params_j}
-    reset_launch_counts()
-    n_calls = 0
-    for B, S in ((1, 4096), (8, 4096)):
-        toks = torch.randint(0, cfg_j.vocab, (B, S), generator=gen).to(dev)
+    # full-width models (§12–§18): seeded weights drawn on the card, prefill
+    # calls and served requests with exact launch counts, decode profiles
+    def draw(cfg, tag: str):
+        """Seeded weights drawn on the card (the previous model freed)."""
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        p = T.init(cfg, seed=0, device=dev, draw_device="cuda")
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        n = T.count_params(p)
+        esize = torch.empty(0, dtype=cfg.compute_dtype).element_size()
+        print(f"[{tag}] init {init_s:.2f} s, {n} parameters "
+              f"({esize * n / 1e9:.2f} GB in {cfg.dtype}), card memory "
+              f"allocated {torch.cuda.memory_allocated()} bytes")
+        return p, n, init_s
+
+    def prefill_runs(tag, params, cfg, B, S, want, on_prof=None):
+        """Four ``prefill_logits`` calls (the first warms up) and one
+        profiled, the launch counters set to 0 just before and read just
+        after: each must equal ``want`` per call."""
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=gen).to(dev)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
         walls = []
         with torch.inference_mode():
-            for _ in range(4):   # the first call warms up, three are timed
+            for _ in range(4):
                 t0 = time.perf_counter()
-                logits = T.prefill_logits(params, cfg_j, toks)
+                logits = T.prefill_logits(params, cfg, toks)
                 torch.cuda.synchronize()
                 walls.append(time.perf_counter() - t0)
+
             def call():
                 t0 = time.perf_counter()
-                T.prefill_logits(params, cfg_j, toks)
+                T.prefill_logits(params, cfg, toks)
                 torch.cuda.synchronize()
                 return time.perf_counter() - t0
-            rows, wall_prof, sessions = profiled(call)
-        n_calls += 4 + sessions
+            rows, wall_prof, sessions = profiled(call, on_prof=on_prof)
+        n_calls = 4 + sessions
         counts = launch_counts()
-        require(counts == {"rmsnorm": 17 * n_calls, "decode_attention": 0,
-                           "flash_attention": n_calls, "event_scan": 0,
-                           "mamba_scan": 7 * n_calls},
-                f"jamba prefill B {B} x S {S}: launches {counts} after "
-                f"{n_calls} calls; want 7 scans, 1 flash and 17 RMSNorm per "
-                "call")
-        require(tuple(logits.shape) == (B, cfg_j.vocab)
+        full = {k: want.get(k, 0) * n_calls for k in counts}
+        require(counts == full, f"{tag} prefill B {B} x S {S}: launches "
+                f"{counts} after {n_calls} calls; want {want} per call")
+        require(tuple(logits.shape) == (B, cfg.vocab)
                 and bool(torch.isfinite(logits).all()),
-                f"jamba prefill logits {tuple(logits.shape)} not finite")
-        sc = [r for r in rows if "mamba_scan" in r[0]]
-        require(sum(r[2] for r in sc) == 7,
-                f"profile: scan launches {[(r[0][:40], r[2]) for r in sc]}")
-        scan_us = sum(r[1] for r in sc)
-        fl = [r for r in rows if "flash_attention" in r[0]]
-        require(sum(r[2] for r in fl) == 1,
-                f"profile: flash launches {[(r[0][:40], r[2]) for r in fl]}")
-        flash_us = sum(r[1] for r in fl)
-        busy_us = sum(r[1] for r in rows)
+                f"{tag} prefill logits {tuple(logits.shape)} not finite")
         ms = float(np.median(walls[1:])) * 1e3
+        busy_us = sum(r[1] for r in rows)
+        # bytes: every weight read once (the embedding's rows are
+        # gathered, not read), 2 bytes each in bf16
+        esize = torch.empty(0, dtype=cfg.compute_dtype).element_size()
+        w_bytes = esize * (T.count_params(params) - cfg.vocab * cfg.d_model)
+        b_ms, b_by = bound(w_bytes, prefill_ops(cfg, params, B, S),
+                           cfg.compute_dtype)
         rep = {"B": B, "S": S, "wall_ms_median_of_3": ms,
                "wall_ms": [w * 1e3 for w in walls],
                "prompt_tokens_per_s": B * S / ms * 1e3,
+               "bound_ms": b_ms, "bound_by": b_by,
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                "profiled_wall_ms": wall_prof * 1e3,
                "device_busy_ms": busy_us / 1e3,
-               "mamba_scan_device_us_per_launch": scan_us / 7,
-               "mamba_scan_share_of_device_time": scan_us / busy_us,
-               "flash_device_us": flash_us,
-               "flash_share_of_device_time": flash_us / busy_us,
+               "launches_per_call": want, "launches": counts,
                "top": [{"name": n[:80], "device_us": t, "calls": c}
                        for n, t, c in rows[:10]]}
-        jamba_rep[f"B{B}xS{S}"] = rep
-        print(f"[jamba] prefill_logits B {B} x S {S}: {ms:.1f} ms per call "
-              f"(median of 3, synchronised; first call "
-              f"{walls[0] * 1e3:.1f} ms), {rep['prompt_tokens_per_s']:.0f} "
-              f"prompt tokens/s, peak memory "
-              f"{rep['max_memory_allocated_bytes']} bytes, logits "
-              f"{tuple(logits.shape)} finite")
-        print(f"[jamba]   profiled call: {wall_prof * 1e3:.1f} ms wall, "
-              f"device busy {busy_us / 1e3:.1f} ms, selective scan "
-              f"{scan_us / 7:.1f} us per launch x7 "
-              f"({rep['mamba_scan_share_of_device_time']:.1%} of device "
-              f"time), flash attention {flash_us:.1f} us x1 "
-              f"({rep['flash_share_of_device_time']:.1%}); top device "
-              "kernels:")
+        print(f"[{tag}] prefill_logits B {B} x S {S}: {ms:.1f} ms per call "
+              f"(median of 3, synchronised; first call {walls[0] * 1e3:.1f} "
+              f"ms) against a {b_ms:.1f} ms bound ({b_by}: 3.35 TB/s, "
+              f"989 TFLOP/s), "
+              f"{rep['prompt_tokens_per_s']:.0f} prompt tokens/s, peak "
+              f"memory {rep['max_memory_allocated_bytes']} bytes, logits "
+              f"{tuple(logits.shape)} finite; launches per call {want}")
+        print(f"[{tag}]   profiled call: {wall_prof * 1e3:.1f} ms wall, "
+              f"device busy {busy_us / 1e3:.1f} ms; top device kernels:")
         for r in rep["top"][:8]:
-            print(f"[jamba]     {r['device_us'] / 1e3:9.3f} ms x{r['calls']:<4d}"
-                  f" {r['name']}")
-        del toks, logits
-    jamba_counts = launch_counts()
-    print(f"[jamba] launches over {n_calls} calls: {jamba_counts}")
+            print(f"[{tag}]     {r['device_us'] / 1e3:9.3f} ms "
+                  f"x{r['calls']:<4d} {r['name']}")
+        return rep, rows
 
-    # 13. jamba served ----------------------------------------------------
-    print("[serve-jamba] the same model through ServingEngine: §5's 8 "
-          "requests, max_len 512, 32 new tokens each, policy symbiotic")
-    rng = np.random.default_rng(0)
-    reqs = []
-    for i in range(8):   # serve()'s seeded requests, as in §5
-        plen = int(rng.integers(4, max(5, 512 // 4)))
-        reqs.append(Request(i, rng.integers(0, cfg_j.vocab, size=plen),
-                            max_new_tokens=32))
-    eng = ServingEngine(cfg_j, params, max_len=512,
-                        policy=SchedulerPolicy(kind="symbiotic"))
-    eng.submit(reqs)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launch_counts()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    st = eng.run()
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    counts = launch_counts()
-    outs = st["outputs"]
-    steps = sum(len(r.prompt) for r in reqs) + sum(len(t) - 1
-                                                   for t in outs.values())
-    require(len(outs) == 8 and all(len(t) == 32 for t in outs.values()),
-            f"jamba serving: not every request finished: {outs}")
-    require(counts == {"rmsnorm": 17 * steps, "decode_attention": steps,
-                       "flash_attention": 0, "event_scan": 0,
-                       "mamba_scan": 0},
-            f"jamba serving: launches {counts} over {steps} decode steps; "
-            "want 17 RMSNorm and 1 decode attention per step, no scan")
-    floor_ms = 2 * (n_params_j - cfg_j.vocab * cfg_j.d_model) / HBM_BPS * 1e3
-    serve_j = {"rounds": st["rounds"],
+    def serve_runs(tag, params, cfg, want):
+        """§5's 8 requests through ServingEngine (symbiotic, max_len 512,
+        32 new tokens), the counters set to 0 just before and read just
+        after: ``want`` launches per ``decode_step``."""
+        rng = np.random.default_rng(0)
+        reqs = []
+        for i in range(8):   # serve()'s seeded requests, as in §5
+            plen = int(rng.integers(4, max(5, 512 // 4)))
+            reqs.append(Request(i, rng.integers(0, cfg.vocab, size=plen),
+                                max_new_tokens=32))
+        eng = ServingEngine(cfg, params, max_len=512,
+                            policy=SchedulerPolicy(kind="symbiotic"))
+        eng.submit(reqs)
+        torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        st = eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = launch_counts()
+        outs = st["outputs"]
+        steps = sum(len(r.prompt) for r in reqs) + sum(len(t) - 1
+                                                       for t in outs.values())
+        require(len(outs) == 8 and all(len(t) == 32 for t in outs.values()),
+                f"{tag}: not every request finished: {outs}")
+        full = {k: want.get(k, 0) * steps for k in counts}
+        require(counts == full, f"{tag}: launches {counts} over {steps} "
+                f"decode steps; want {want} per step")
+        n = T.count_params(params)
+        floor_ms = 2 * (n - cfg.vocab * cfg.d_model) / HBM_BPS * 1e3
+        rep = {"rounds": st["rounds"],
                "modelled_time_s_v5e_cost_model": st["modelled_time_s"],
                "wall_s": wall, "decode_steps": steps,
                "ms_per_decode_step": wall * 1e3 / steps,
@@ -1591,15 +1774,100 @@ def main(argv=None) -> int:
                "weight_read_floor_ms": floor_ms,
                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                "launches": counts}
-    jamba_rep["serving"] = serve_j
-    print(f"[serve-jamba] rounds={st['rounds']} modelled_time_s (TPU v5e "
-          f"round cost model, not this card)={st['modelled_time_s']:.6e}; "
-          f"wall_s={wall:.3f} (synchronised) tokens/s="
-          f"{serve_j['tokens_per_s']:.2f} ms/decode_step="
-          f"{serve_j['ms_per_decode_step']:.4f} over {steps} steps "
-          f"(weight-read floor {floor_ms:.4f} ms: every expert's weights "
-          f"are read at C = 8 slots); launches {counts}")
-    del eng, reqs
+        print(f"[{tag}] rounds={st['rounds']} modelled_time_s (TPU v5e round "
+              f"cost model, not this card)={st['modelled_time_s']:.6e}; "
+              f"wall_s={wall:.3f} (synchronised) tokens/s="
+              f"{rep['tokens_per_s']:.2f} ms/decode_step="
+              f"{rep['ms_per_decode_step']:.4f} over {steps} steps against "
+              f"a {floor_ms:.4f} ms weight-read floor (every weight but the "
+              f"embedding rows, 2 bytes each, at 3.35 TB/s; static-capacity "
+              f"MoE reads every expert); launches {counts}")
+        return rep, outs
+
+    def step_profile(tag, params, cfg, n_steps=16):
+        """Device busy share of ``n_steps`` batch-1 ``decode_step``s on a
+        512-slot cache after 8 warm steps."""
+        cache = T.init_cache(cfg, 1, 512, device=dev)
+        tok = torch.zeros((1,), dtype=torch.long, device=dev)
+        with torch.inference_mode():
+            for pos in range(8):
+                _, cache = T.decode_step(params, cfg, tok, cache, pos)
+            torch.cuda.synchronize()
+
+            def steps():
+                t0 = time.perf_counter()
+                c = cache
+                for pos in range(8, 8 + n_steps):
+                    _, c = T.decode_step(params, cfg, tok, c, pos)
+                torch.cuda.synchronize()
+                return time.perf_counter() - t0
+            rows, wall, _ = profiled(steps)
+        busy_us = sum(r[1] for r in rows)
+        rep = {"steps": n_steps, "wall_ms_per_step": wall * 1e3 / n_steps,
+               "device_busy_ms_per_step": busy_us / 1e3 / n_steps,
+               "device_busy_share": busy_us / 1e6 / wall,
+               "device_events_per_step": sum(r[2] for r in rows) / n_steps,
+               "top": [{"name": n[:80], "device_us_per_step": t / n_steps,
+                        "calls_per_step": c / n_steps}
+                       for n, t, c in rows[:10]]}
+        print(f"[{tag}] profile of {n_steps} decode steps: "
+              f"{rep['wall_ms_per_step']:.3f} ms per step wall, device busy "
+              f"{rep['device_busy_ms_per_step']:.3f} ms per step "
+              f"({rep['device_busy_share']:.1%}), "
+              f"{rep['device_events_per_step']:.0f} kernels and copies per "
+              f"step; top:")
+        for r in rep["top"][:6]:
+            print(f"[{tag}]   {r['device_us_per_step']:9.2f} us/step "
+                  f"x{r['calls_per_step']:.0f}  {r['name']}")
+        return rep
+
+    def op_device_us(prof, key: str) -> float:
+        """Device time of every kernel launched under the CPU op ``key``
+        (e.g. ``aten::einsum``: MLA's attention products in a prefill)."""
+        return sum(e.device_time_total for e in prof.key_averages()
+                   if e.key == key)
+
+    # 12. jamba at full width, one period of depth ------------------------
+    cfg_j = get_config("jamba-v0.1-52b", "full").replace(n_layers=8)
+    print("[jamba] jamba-v0.1-52b full width, depth cut from 32 to 8 layers "
+          "(one period: seven Mamba, one attention, four MoE), bf16, "
+          "weights drawn on the card from seed 0")
+    params, n_params_j, init_s = draw(cfg_j, "jamba")
+    require(n_params_j == 13_295_235_072, f"jamba depth-8 parameters "
+            f"{n_params_j}")
+    jamba_rep = {"init_s": init_s, "n_params": n_params_j}
+    jamba_counts = {}
+    for B, S in ((1, 4096), (8, 4096)):
+        rep, rows = prefill_runs("jamba", params, cfg_j, B, S,
+                                 {"rmsnorm": 17, "flash_attention": 1,
+                                  "mamba_scan": 7})
+        sc = [r for r in rows if "mamba_scan" in r[0]]
+        require(sum(r[2] for r in sc) == 7,
+                f"profile: scan launches {[(r[0][:40], r[2]) for r in sc]}")
+        scan_us = sum(r[1] for r in sc)
+        fl = [r for r in rows if "flash_attention" in r[0]]
+        require(sum(r[2] for r in fl) == 1,
+                f"profile: flash launches {[(r[0][:40], r[2]) for r in fl]}")
+        flash_us = sum(r[1] for r in fl)
+        busy_us = rep["device_busy_ms"] * 1e3
+        rep.update(mamba_scan_device_us_per_launch=scan_us / 7,
+                   mamba_scan_share_of_device_time=scan_us / busy_us,
+                   flash_device_us=flash_us,
+                   flash_share_of_device_time=flash_us / busy_us)
+        print(f"[jamba]   selective scan {scan_us / 7:.1f} us per launch x7 "
+              f"({rep['mamba_scan_share_of_device_time']:.1%} of device "
+              f"time), flash attention {flash_us:.1f} us x1 "
+              f"({rep['flash_share_of_device_time']:.1%})")
+        jamba_rep[f"B{B}xS{S}"] = rep
+        for k, v in rep["launches"].items():
+            jamba_counts[k] = jamba_counts.get(k, 0) + v
+    print(f"[jamba] launches over both shapes: {jamba_counts}")
+
+    # 13. jamba served ----------------------------------------------------
+    print("[serve-jamba] the same model through ServingEngine: §5's 8 "
+          "requests, max_len 512, 32 new tokens each, policy symbiotic")
+    jamba_rep["serving"], _ = serve_runs(
+        "serve-jamba", params, cfg_j, {"rmsnorm": 17, "decode_attention": 1})
 
     # 14. jamba in f32: the kernels against the plain twins ---------------
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1632,16 +1900,150 @@ def main(argv=None) -> int:
     del params, a, b, toks
     torch.cuda.empty_cache()
 
+    # 15. deepseek-v2 at full width, depth cut to 8 layers ----------------
+    cfg_d = get_config("deepseek-v2-236b", "full").replace(n_layers=8)
+    print("[deepseek] deepseek-v2-236b full width, depth cut from 60 to 8 "
+          "layers (one dense, seven MoE of 160 experts, top 6, 2 shared), "
+          "bf16, weights drawn on the card from seed 0")
+    params, n_params_d, init_s = draw(cfg_d, "deepseek")
+    require(n_params_d == 29_191_377_920,
+            f"deepseek depth-8 parameters {n_params_d}")
+    ds_rep = {"init_s": init_s, "n_params": n_params_d}
+    want_d = {"rmsnorm": 4 * cfg_d.n_layers + 1}   # norm1/2, q_norm, kv_norm
+    for B, S in ((1, 4096), (4, 1024)):   # blockwise_sdpa, then sdpa
+        einsum_us = []
+        rep, rows = prefill_runs(
+            "deepseek", params, cfg_d, B, S, want_d,
+            on_prof=lambda prof: einsum_us.append(
+                op_device_us(prof, "aten::einsum")))
+        rep["mla_einsum_device_us"] = einsum_us[-1]
+        rep["mla_einsum_share_of_device_time"] = (
+            einsum_us[-1] / (rep["device_busy_ms"] * 1e3))
+        print(f"[deepseek]   MLA attention einsums (aten::einsum): "
+              f"{einsum_us[-1] / 1e3:.1f} ms, "
+              f"{rep['mla_einsum_share_of_device_time']:.1%} of device time "
+              f"({'blockwise_sdpa' if S > 2048 else 'sdpa'} branch)")
+        ds_rep[f"B{B}xS{S}"] = rep
+
+    # 16. deepseek served -------------------------------------------------
+    print("[serve-deepseek] the same model through ServingEngine: §5's 8 "
+          "requests, max_len 512, 32 new tokens each, policy symbiotic")
+    ds_rep["serving"], _ = serve_runs("serve-deepseek", params, cfg_d, want_d)
+    ds_serve_counts = ds_rep["serving"]["launches"]
+    ds_rep["decode_profile"] = step_profile("serve-deepseek", params, cfg_d)
+    del params
+    report["deepseek"] = ds_rep
+
+    # 17. deepseek in f32: forward (non-absorbed) against absorbed decode --
+    cfg_d32 = cfg_d.replace(n_layers=2, dtype="float32")
+    print("[deepseek] f32, TF32 off, depth 2 (one dense layer, one MoE "
+          "layer): prefill_logits (MLA.fwd) against prefill's replay into "
+          "an f32 cache (the absorbed MLA.decode) on a 64-token prompt")
+    params, n32, _ = draw(cfg_d32, "deepseek")
+    require(n32 == 5_358_679_040, f"deepseek depth-2 parameters {n32}")
+    prompt = torch.randint(0, cfg_d32.vocab, (1, 64), generator=gen).to(dev)
+    # capacity_factor raised a slot group of 8 at a time until the forward
+    # drops no token: static capacity drops overflow, and a token dropped
+    # in the forward is not dropped in decode (one token, 8 slots an expert)
+    C = MoE.capacity(cfg_d32, 64)
+    with torch.inference_mode():
+        while True:
+            _, aux = T.forward_features(params, cfg_d32, prompt)
+            if float(aux["moe_drop_frac"]) == 0.0:
+                break
+            C += 8
+            cfg_d32 = cfg_d32.replace(
+                capacity_factor=(C - 0.5) * cfg_d32.n_experts
+                / (64 * cfg_d32.top_k))
+            require(MoE.capacity(cfg_d32, 64) == C, "capacity step")
+        full = T.prefill_logits(params, cfg_d32, prompt)
+        drops = []
+        moe_fwd = MoE.fwd
+
+        def spy(p, cfg, x):   # the decode path discards its aux terms
+            y, aux = moe_fwd(p, cfg, x)
+            drops.append(float(aux["moe_drop_frac"]))
+            return y, aux
+        MoE.fwd = staticmethod(spy)
+        try:
+            cache = T.init_cache(cfg_d32, 1, 64, dtype=torch.float32,
+                                 device=dev)
+            for pos in range(64):
+                last, cache = T.decode_step(params, cfg_d32, prompt[:, pos],
+                                            cache, pos)
+        finally:
+            MoE.fwd = staticmethod(moe_fwd)
+    diff = (full - last).abs().max().item()
+    same = bool((full.argmax(-1) == last.argmax(-1)).all())
+    print(f"[deepseek] f32: capacity_factor {cfg_d32.capacity_factor:.4f} "
+          f"(C {C} slots an expert at 64 tokens; 1.25 gives "
+          f"{MoE.capacity(cfg_d, 64)}), forward drop fraction 0, decode "
+          f"drop fraction max {max(drops)} over {len(drops)} MoE calls; "
+          f"prefill_logits vs replay max diff {diff:.3e} (bound 1e-3), same "
+          f"argmax {same}, logits std {full.std().item():.4f}")
+    require(len(drops) == 64 and max(drops) == 0.0,
+            "deepseek f32: decode dropped tokens")
+    require(bool(torch.isfinite(full).all()) and diff < 1e-3 and same,
+            "deepseek f32: forward and absorbed decode differ")
+    ds_rep["f32"] = {"capacity_factor": cfg_d32.capacity_factor,
+                     "capacity_slots": C, "max_diff": diff,
+                     "same_argmax": same}
+    del params, cache, full, last
+
+    # 18. mixtral at full width, depth cut to 16 layers --------------------
+    cfg_m = get_config("mixtral-8x7b", "full").replace(n_layers=16)
+    print("[mixtral] mixtral-8x7b full width, depth cut from 32 to 16 "
+          "layers (8 experts, top 2, window 4096), bf16, weights drawn on "
+          "the card from seed 0")
+    params, n_params_m, init_s = draw(cfg_m, "mixtral")
+    require(n_params_m == 23_482_470_400,
+            f"mixtral depth-16 parameters {n_params_m}")
+    mx_rep = {"init_s": init_s, "n_params": n_params_m}
+    want_m = {"rmsnorm": 2 * cfg_m.n_layers + 1,
+              "flash_attention": cfg_m.n_layers}
+    rep, rows = prefill_runs("mixtral", params, cfg_m, 1, 8192, want_m)
+    fl = [r for r in rows if "flash_attention" in r[0]]
+    require(sum(r[2] for r in fl) == cfg_m.n_layers,
+            f"profile: flash launches {[(r[0][:40], r[2]) for r in fl]}")
+    rep["flash_device_us_per_launch"] = sum(r[1] for r in fl) / cfg_m.n_layers
+    rep["flash_share_of_device_time"] = (
+        sum(r[1] for r in fl) / (rep["device_busy_ms"] * 1e3))
+    print(f"[mixtral]   flash attention (window 4096 active at S 8192): "
+          f"{rep['flash_device_us_per_launch']:.1f} us per launch "
+          f"x{cfg_m.n_layers} ({rep['flash_share_of_device_time']:.1%} of "
+          f"device time)")
+    mx_rep["B1xS8192"] = rep
+    mixtral_prefill_counts = rep["launches"]
+    # served: §5's 8 requests, as §13 and §16 serve theirs
+    print("[serve-mixtral] the same model through ServingEngine: §5's 8 "
+          "requests, max_len 512, 32 new tokens each, policy symbiotic")
+    want_md = {"rmsnorm": 2 * cfg_m.n_layers + 1,
+               "decode_attention": cfg_m.n_layers}
+    mx_rep["serving"], _ = serve_runs("serve-mixtral", params, cfg_m, want_md)
+    mixtral_decode_counts = mx_rep["serving"]["launches"]
+    mx_rep["decode_profile"] = step_profile("mixtral", params, cfg_m)
+    report["mixtral"] = mx_rep
+    del params
+    torch.cuda.empty_cache()
+
     # record ----------------------------------------------------------------
+    # launches on the main paths: qwen, deepseek and mixtral decode steps
+    # (§5, §16, §18), qwen and mixtral prefills (§7, §18)
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:26",
-                           serve_counts["rmsnorm"]),
+                           serve_counts["rmsnorm"]
+                           + ds_serve_counts["rmsnorm"]
+                           + mixtral_decode_counts["rmsnorm"]),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:68",
-                                    serve_counts["decode_attention"]),
+                                    serve_counts["decode_attention"]
+                                    + mixtral_decode_counts[
+                                        "decode_attention"]),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:79",
-                                   prefill_counts["flash_attention"]),
+                                   prefill_counts["flash_attention"]
+                                   + mixtral_prefill_counts[
+                                       "flash_attention"]),
                "event_scan": ("src/repro_torch/csrc/event_scan.cu",
                               "src/repro/kernels/event_scan.py:295",
                               space_counts["event_scan"]),

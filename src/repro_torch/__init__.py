@@ -8,13 +8,15 @@ against ``repro``.  Entry points run on ``cuda`` unless the caller asks
 for ``device="cpu"``, where every kernel's plain PyTorch version runs.
 
 Ported so far: configs and shapes, the models (:mod:`.models`: GQA
-decode and forward for every dense GQA arch, Mamba and MoE layers for
-jamba and mixtral), all five TPU kernels as CUDA C++ for ``sm_90a``
-(:mod:`.kernels`: RMSNorm, decode attention, flash attention, the event
-scan and the selective scan), the host scheduler with its simulators,
-refiners and design-space protocol (:mod:`.core`), observability
-(:mod:`.obs`), the flat serving engine with refined composition
+decode and forward for every dense GQA arch, MLA for deepseek-v2, Mamba
+and MoE layers for jamba, mixtral and deepseek-v2), all five TPU
+kernels as CUDA C++ for ``sm_90a`` (:mod:`.kernels`: RMSNorm, decode
+attention, flash attention, the event scan and the selective scan), the
+host scheduler with its simulators,
+refiners and design-space protocol (:mod:`.core`), the dependency-aware
+kernel-DAG scheduler (:mod:`.graph`), observability (:mod:`.obs`), the
+serving engine with refined and dependency-aware (unsliced) composition
 (:mod:`.serve`) and its command-line entry point (:mod:`.launch.serve`).
-ROADMAP.md lists the rest (MLA, the dependency-aware composition, the
+ROADMAP.md lists the rest (kernel slicing and the live composition, the
 front end, xLSTM, training, distribution).
 """

@@ -2,9 +2,11 @@
 symbiotic engine, generations + scheduling stats.
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
-      --variant full --requests 8 --policy symbiotic
+      --variant full --requests 8 --policy symbiotic [--respect-deps]
 
-Runs on ``cuda`` unless ``--device cpu`` is given.
+Runs on ``cuda`` unless ``--device cpu`` is given.  ``--respect-deps``
+composes over the per-layer dependency graph
+(``SchedulerPolicy.respect_deps``); the tokens are the same.
 """
 
 from __future__ import annotations
@@ -64,12 +66,15 @@ def main(argv=None) -> int:
     ap.add_argument("--max-len", type=int, default=96)
     ap.add_argument("--max-new-tokens", type=int, default=8)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--respect-deps", action="store_true")
     args = ap.parse_args(argv)
     stats = serve(args.arch, variant=args.variant,
                   n_requests=args.requests, policy=args.policy,
                   max_len=args.max_len,
-                  max_new_tokens=args.max_new_tokens, device=args.device)
-    print(f"policy={args.policy} rounds={stats['rounds']} "
+                  max_new_tokens=args.max_new_tokens, device=args.device,
+                  respect_deps=args.respect_deps)
+    print(f"policy={args.policy} respect_deps={args.respect_deps} "
+          f"rounds={stats['rounds']} "
           f"new_tokens={stats['total_new_tokens']} "
           f"modelled={stats['modelled_time_s'] * 1e3:.2f}ms "
           f"wall={stats['wall_s']:.1f}s")

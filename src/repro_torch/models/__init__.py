@@ -1,9 +1,10 @@
-"""Model layers and assembly: GQA attention (decode and the full-sequence
-forward), Mamba and MoE layers, and the transformer stack of every arch
-the port runs (dense GQA, jamba's hybrid, mixtral's MoE).
+"""Model layers and assembly: GQA and MLA attention (decode and the
+full-sequence forward), Mamba and MoE layers, and the transformer stack
+of every arch the port runs (dense GQA, jamba's hybrid, mixtral's MoE,
+deepseek-v2's MLA with its dense prefix).
 
 The names match the reference's ``repro.models`` (``model_flops`` waits
-for the roofline slice); MLA and xLSTM configs raise in
+for the roofline slice); xLSTM configs raise in
 ``transformer.check_supported``.
 """
 

@@ -11,7 +11,14 @@ token's K/V into its cache slot in place and attends through the
 decode-attention op (:func:`repro_torch.kernels.ops.decode_attention`).
 :func:`decode_sdpa` is the plain twin of the reference's decode core.
 The twins serve parity checks; the kernels are the path on the card.
-MLA comes with a later slice.
+
+``MLA`` is DeepSeek-V2's multi-head latent attention.  As in the
+reference, it has no kernel branch: ``MLA.fwd`` runs :func:`sdpa` /
+:func:`blockwise_sdpa` on every device (its q/k head dim 192 differs
+from v's 128, outside the flash kernel's contract), and ``MLA.decode``
+is the reference's absorbed form, a few einsums against the compressed
+cache.  Its RMSNorms (``q_norm``, ``kv_norm``) go through the RMSNorm
+op like every other norm.
 """
 
 from __future__ import annotations
@@ -21,9 +28,10 @@ import math
 import torch
 
 from ..kernels import ops
-from .common import ModelConfig, apply_rope, dense, make_dense, rope_tables
+from .common import (ModelConfig, apply_rope, dense, make_dense, rmsnorm,
+                     rope_tables)
 
-__all__ = ["GQA", "sdpa", "blockwise_sdpa", "decode_sdpa",
+__all__ = ["GQA", "MLA", "sdpa", "blockwise_sdpa", "decode_sdpa",
            "causal_mask_bias"]
 
 _NEG_INF = -1e30
@@ -236,5 +244,148 @@ class GQA:
         lengths = torch.full((B,), min(pos + 1, slots), dtype=torch.int32,
                              device=x.device)
         out = ops.decode_attention(q[:, 0], cache["k"], cache["v"], lengths)
+        y = dense(p["wo"], out.reshape(B, 1, -1).to(x.dtype))
+        return y, cache
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V2)
+# ---------------------------------------------------------------------------
+
+class MLA:
+    """Multi-head latent attention with a low-rank compressed KV cache.
+
+    The cache holds only ``c_kv`` (kv_lora_rank) and the rope key shared
+    by the heads (qk_rope_head_dim) per token.  Decode uses the
+    *absorbed* form, so it attends to the compressed cache directly.
+    """
+
+    @staticmethod
+    def init(gen: torch.Generator, cfg: ModelConfig, *, dtype, device) -> dict:
+        d, H = cfg.d_model, cfg.n_heads
+        r_kv, r_q = cfg.kv_lora_rank, cfg.q_lora_rank
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        kw = {"dtype": dtype, "device": device}
+        p = {
+            "w_dkv": make_dense(gen, d, r_kv, **kw),
+            "w_krope": make_dense(gen, d, dr, **kw),
+            "w_uk": make_dense(gen, r_kv, H * dn, **kw),
+            "w_uv": make_dense(gen, r_kv, H * dv, **kw),
+            "wo": make_dense(gen, H * dv, d,
+                             scale=1.0 / math.sqrt(H * dv * 2 * cfg.n_layers),
+                             **kw),
+            "kv_norm": {"scale": torch.ones((r_kv,), dtype=torch.float32,
+                                            device=device)},
+        }
+        if r_q:
+            p["w_dq"] = make_dense(gen, d, r_q, **kw)
+            p["w_uq"] = make_dense(gen, r_q, H * (dn + dr), **kw)
+            p["q_norm"] = {"scale": torch.ones((r_q,), dtype=torch.float32,
+                                               device=device)}
+        else:
+            p["wq"] = make_dense(gen, d, H * (dn + dr), **kw)
+        return p
+
+    @staticmethod
+    def _q(p: dict, cfg: ModelConfig, x: torch.Tensor):
+        B, S, _ = x.shape
+        dn, dr = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+        if "w_dq" in p:
+            q = dense(p["w_uq"], rmsnorm(p["q_norm"], dense(p["w_dq"], x)))
+        else:
+            q = dense(p["wq"], x)
+        q = q.reshape(B, S, cfg.n_heads, dn + dr)
+        return q[..., :dn], q[..., dn:]
+
+    @staticmethod
+    def _ckv(p: dict, cfg: ModelConfig, x: torch.Tensor):
+        # Two GEMMs, not one sliced: the RMSNorm kernel takes contiguous
+        # rows only.
+        c_kv = rmsnorm(p["kv_norm"], dense(p["w_dkv"], x))
+        k_rope = dense(p["w_krope"], x)  # (B, S, dr) shared across heads
+        return c_kv, k_rope
+
+    @staticmethod
+    def fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, cos: torch.Tensor,
+            sin: torch.Tensor, *, impl: str = "kernel") -> torch.Tensor:
+        """Full-sequence causal layer.  x: (B, S, d); cos/sin: (S,
+        qk_rope_head_dim/2).  ``impl`` is accepted for the layer
+        signature: both values run :func:`sdpa` up to S = 2048 and
+        :func:`blockwise_sdpa` above, the reference's branch."""
+        if impl not in ("kernel", "xla"):
+            raise ValueError(f"impl must be 'kernel' or 'xla', not {impl!r}")
+        B, S, _ = x.shape
+        H = cfg.n_heads
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        q_nope, q_rope = MLA._q(p, cfg, x)
+        c_kv, k_rope = MLA._ckv(p, cfg, x)
+        q_rope = apply_rope(q_rope, cos, sin)
+        k_rope = apply_rope(k_rope[:, :, None, :], cos, sin)  # (B,S,1,dr)
+        k_nope = dense(p["w_uk"], c_kv).reshape(B, S, H, dn)
+        v = dense(p["w_uv"], c_kv).reshape(B, S, H, dv)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], dim=-1)
+        scale = 1.0 / math.sqrt(dn + dr)
+        if S > 2048:
+            out = blockwise_sdpa(q, k, v, scale=scale, causal=True,
+                                 window=None)
+        else:
+            bias = causal_mask_bias(S, S, causal=True, window=None,
+                                    device=x.device)
+            out = sdpa(q, k, v, bias, scale=scale)
+        return dense(p["wo"], out.reshape(B, S, -1))
+
+    # -- decode (absorbed form) ---------------------------------------
+    @staticmethod
+    def init_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   dtype: torch.dtype = torch.bfloat16, *,
+                   device="cuda") -> dict:
+        kw = {"dtype": dtype, "device": device}
+        return {
+            "c_kv": torch.zeros((batch, max_len, cfg.kv_lora_rank), **kw),
+            "k_rope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                  **kw),
+        }
+
+    @staticmethod
+    def decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
+               pos: int) -> tuple[torch.Tensor, dict]:
+        """x: (B, 1, d); pos: count of tokens already in the cache.
+
+        Writes ``c_kv`` and the rotated rope key into slot ``pos`` of
+        ``cache`` in place and returns the same dict.  The numerics are
+        the reference's: W_uk and W_uv absorbed in the compute dtype,
+        f32 logits and softmax, the weights rounded to the cache dtype
+        before the context product."""
+        B = x.shape[0]
+        H = cfg.n_heads
+        dn, dr, dv = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+        r_kv = cfg.kv_lora_rank
+        q_nope, q_rope = MLA._q(p, cfg, x)          # (B,1,H,dn),(B,1,H,dr)
+        c_kv, k_rope = MLA._ckv(p, cfg, x)          # (B,1,r_kv),(B,1,dr)
+        positions = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        cos, sin = rope_tables(positions, dr, cfg.rope_theta)
+        q_rope = apply_rope(q_rope, cos[None], sin[None])
+        k_rope = apply_rope(k_rope[:, :, None, :], cos[None],
+                            sin[None])[:, :, 0]
+        ck, cr = cache["c_kv"], cache["k_rope"]
+        ck[:, pos] = c_kv[:, 0].to(ck.dtype)
+        cr[:, pos] = k_rope[:, 0].to(cr.dtype)
+        T = ck.shape[1]
+        valid = torch.arange(T, device=x.device) <= pos
+        # Absorb W_uk into the query: q_c = q_nope @ W_uk^T (per head).
+        w_uk = p["w_uk"]["w"].reshape(r_kv, H, dn)
+        q_c = torch.einsum("bhd,rhd->bhr", q_nope[:, 0],
+                           w_uk.to(q_nope.dtype))          # (B,H,r_kv)
+        logits = torch.einsum("bhr,btr->bht", q_c.float(), ck.float())
+        logits = logits + torch.einsum("bhd,btd->bht", q_rope[:, 0].float(),
+                                       cr.float())
+        logits = logits / math.sqrt(dn + dr)
+        logits = torch.where(valid[None, None, :], logits, _NEG_INF)
+        w = torch.softmax(logits, dim=-1)
+        ctx = torch.einsum("bht,btr->bhr", w.to(ck.dtype), ck)  # (B,H,r_kv)
+        # Absorb W_uv on the way out.
+        w_uv = p["w_uv"]["w"].reshape(r_kv, H, dv)
+        out = torch.einsum("bhr,rhd->bhd", ctx, w_uv.to(ctx.dtype))
         y = dense(p["wo"], out.reshape(B, 1, -1).to(x.dtype))
         return y, cache

@@ -17,13 +17,16 @@ Entry points:
 * ``init_cache(cfg, batch, max_len, *, device)``   -> cache
 * ``decode_step(params, cfg, tok, cache, pos)``    -> logits, cache
 
-A layer's mixer is GQA attention or a Mamba block (jamba), and its
-feed-forward a dense MLP or an MoE layer (``cfg.is_moe_layer``).
-``forward``, ``forward_features`` and ``prefill_logits`` take ``impl``:
-``"kernel"`` (the default) attends through the flash-attention op and
-scans through the selective-scan op, ``"xla"`` runs the plain twins of
-the reference's XLA path instead.  MLA and xLSTM layers come with later
-slices; those configs raise ``NotImplementedError``.
+A layer's mixer is attention (GQA, or MLA where ``cfg.attn_type ==
+"mla"``: deepseek-v2) or a Mamba block (jamba), and its feed-forward a
+dense MLP or an MoE layer (``cfg.is_moe_layer``), after a prefix of
+``cfg.first_dense_layers`` dense layers.  ``forward``,
+``forward_features`` and ``prefill_logits`` take ``impl``: ``"kernel"``
+(the default) attends through the flash-attention op and scans through
+the selective-scan op, ``"xla"`` runs the plain twins of the
+reference's XLA path instead; MLA has no kernel branch, as in the
+reference, and runs its plain twins either way.  xLSTM layers come with
+a later slice; those configs raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,7 +35,7 @@ import math
 
 import torch
 
-from .attention import GQA
+from .attention import GQA, MLA
 from .common import (ModelConfig, act_fn, dense, init_norm, make_dense,
                      norm, normal, rope_tables)
 from .moe import MoE
@@ -47,7 +50,14 @@ __all__ = ["init", "forward", "forward_features", "head_matrix",
 # Layer plumbing
 # ---------------------------------------------------------------------------
 
-_MIXERS = {"attn": GQA, "mamba": Mamba}
+def _attn_cls(cfg: ModelConfig):
+    return MLA if cfg.attn_type == "mla" else GQA
+
+
+def _mixer(cfg: ModelConfig, i: int):
+    """Layer ``i``'s mixer class: the config's attention class or
+    Mamba."""
+    return _attn_cls(cfg) if cfg.layer_kind(i) == "attn" else Mamba
 
 
 def _has_ff(cfg: ModelConfig, i: int) -> bool:
@@ -72,17 +82,12 @@ def unit_period(cfg: ModelConfig) -> tuple[int, int]:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configs outside the ported slices: MLA attention and
-    xLSTM layers."""
-    if cfg.attn_type != "gqa":
-        raise NotImplementedError(
-            f"{cfg.name}: MLA attention is not ported yet (ROADMAP: "
-            "'MoE and MLA: mixtral and deepseek')")
+    """Raise for configs outside the ported slices: xLSTM layers."""
     for i in range(cfg.n_layers):
-        if cfg.layer_kind(i) not in _MIXERS:
+        if cfg.layer_kind(i) not in ("attn", "mamba"):
             raise NotImplementedError(
                 f"{cfg.name}: {cfg.layer_kind(i)} layers are not ported "
-                "yet (ROADMAP: 'The other seven archs')")
+                "yet (ROADMAP: 'xLSTM, and checks for the other archs')")
 
 
 def _init_mlp(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -107,8 +112,7 @@ def _mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 def _init_layer(gen, cfg: ModelConfig, i: int, dtype, device) -> dict:
     p = {"norm1": init_norm(cfg.d_model, cfg.norm, device),
-         "mixer": _MIXERS[cfg.layer_kind(i)].init(gen, cfg, dtype=dtype,
-                                                  device=device)}
+         "mixer": _mixer(cfg, i).init(gen, cfg, dtype=dtype, device=device)}
     if _has_ff(cfg, i):
         p["norm2"] = init_norm(cfg.d_model, cfg.norm, device)
         if cfg.is_moe_layer(i):
@@ -130,7 +134,7 @@ def _apply_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor, cos,
     aux = _zero_aux(x.device)
     h = norm(p["norm1"], x, cfg.norm)
     if cfg.layer_kind(i) == "attn":
-        y = GQA.fwd(p["mixer"], cfg, h, cos, sin, impl=impl)
+        y = _attn_cls(cfg).fwd(p["mixer"], cfg, h, cos, sin, impl=impl)
     else:
         y = Mamba.fwd(p["mixer"], cfg, h, impl=impl)
     x = x + y
@@ -289,11 +293,12 @@ def prefill_logits(params: dict, cfg: ModelConfig, batch, *,
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, *, device="cuda") -> dict:
-    """One cache per layer, by kind: ``{"k", "v"}`` for attention,
-    ``{"conv", "ssm"}`` for Mamba.  bf16 by default whatever
-    ``cfg.dtype`` is, as in the reference (Mamba's ssm state is f32)."""
+    """One cache per layer, by kind: ``{"k", "v"}`` for GQA attention,
+    ``{"c_kv", "k_rope"}`` for MLA, ``{"conv", "ssm"}`` for Mamba.
+    bf16 by default whatever ``cfg.dtype`` is, as in the reference
+    (Mamba's ssm state is f32)."""
     check_supported(cfg)
-    return {"layers": [_MIXERS[cfg.layer_kind(i)].init_cache(
+    return {"layers": [_mixer(cfg, i).init_cache(
         cfg, batch, max_len, dtype, device=device)
         for i in range(cfg.n_layers)]}
 
@@ -301,7 +306,7 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 def _decode_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
                   c: dict, pos: int) -> tuple[torch.Tensor, dict]:
     h = norm(p["norm1"], x, cfg.norm)
-    y, c = _MIXERS[cfg.layer_kind(i)].decode(p["mixer"], cfg, h, c, pos)
+    y, c = _mixer(cfg, i).decode(p["mixer"], cfg, h, c, pos)
     x = x + y
     if "norm2" in p:
         h = norm(p["norm2"], x, cfg.norm)

@@ -7,11 +7,12 @@ reference's ``repro.obs``).
 * :mod:`.profile` — phase-timing conventions (:data:`PHASES`) and
   :func:`phase_breakdown`.
 * :mod:`.audit`   — :class:`QualityAuditor`, the online Fig.-1 sampler
-  (flat steps).
+  (flat steps, and traced ``respect_deps`` steps in the gated
+  currency).
 * :mod:`.latency` — :class:`LatencyTracker` and :class:`DriftMonitor`.
 
 Schedule tracing, Prometheus export and the flight recorder come with
-the DAG slice; the engine keeps its duck-typed ``trace=`` /
+a later slice (ROADMAP); the engine keeps its duck-typed ``trace=`` /
 ``recorder=`` hooks for them.
 """
 

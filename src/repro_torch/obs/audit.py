@@ -1,5 +1,5 @@
 """Online quality auditing: the paper's Fig.-1 percentile claim as a
-live serving SLO (flat half of the reference's ``repro.obs.audit``).
+live serving SLO (the port of the reference's ``repro.obs.audit``).
 
 The headline result of the source paper is a *percentile*: a reordered
 launch sequence lands "well above the 90 percentile mark" of the
@@ -10,9 +10,19 @@ claim is a counter, not a rerun of a benchmark:
 * :class:`QualityAuditor` deterministically samples an ``audit_frac``
   fraction of served steps (the integer-crossing rule, so runs
   reproduce without an RNG in the hot path),
-* scores the *served* flat composition against ``audit_k`` seeded
-  shuffles of the same work items under the round cost model, the
-  flat path's serving currency,
+* scores the *served* composition against ``audit_k`` seeded random
+  orders of the same kernel set, under the step's own currency:
+
+  - traced (``respect_deps``) steps score the gated-event makespan of
+    the flat launch order via one
+    :class:`repro_torch.graph.delta.GatedDeltaEvaluator` ``rebase`` on
+    the served order; every random topological baseline then resumes
+    from the checkpoint at its first divergence and pays only a suffix
+    fraction of a full simulation (saved fractions accumulate in the
+    ``audit_sims_saved`` counter);
+  - flat steps score the round cost model over capacity-packed rounds
+    of each shuffled order (the flat path's serving currency).
+
 * records the served order's :func:`repro_torch.core.percentile_rank`
   into the ``audit_quality_percentile{arch,kind}`` histogram and bumps
   ``audit_below_floor`` whenever it lands under ``audit_floor``
@@ -20,8 +30,7 @@ claim is a counter, not a rerun of a benchmark:
 
 The auditor also owns the warm-start regret audit
 (``SchedulerPolicy.warm_audit_frac``), so the ``warm_regret_mean`` /
-``warm_sampled`` stats keys report as in the reference.  The gated
-audit of traced (``respect_deps``) steps comes with the DAG slice.
+``warm_sampled`` stats keys report as in the reference.
 
 Auditing is strictly read-only over already-composed rounds: it never
 mutates the composition, the cache, or request state, so served
@@ -35,6 +44,7 @@ import random
 from ..core.fastscore import greedy_order_fast
 from ..core.scheduler import percentile_rank
 from ..core.tpu import fifo_rounds, round_time
+from ..graph.delta import GatedDeltaEvaluator
 
 __all__ = ["QualityAuditor"]
 
@@ -113,6 +123,62 @@ class QualityAuditor:
 
     def _skip(self, reason: str) -> None:
         self.metrics.counter("audit_skipped", reason=reason).inc()
+
+    # -- traced (respect_deps) steps: gated currency --------------------
+    def audit_dag(self, rounds, traced, *, arch: str,
+                  kind: str) -> dict | None:
+        """Score a served traced composition against ``audit_k``
+        random topological orders of its kernel graph under the
+        gated-event makespan (the offline Fig.-1 protocol,
+        ``benchmarks/dag.py``).
+
+        One ``rebase`` on the served flat order caches per-position
+        checkpoints; each baseline is delta-evaluated from its first
+        divergence, so K baselines cost far less than K full
+        simulations.  Sliced compositions are skipped (their kernel
+        set differs from the traced graph's; counted under
+        ``audit_skipped{reason=sliced}``)."""
+        graph = traced.graph
+        by_name = {p.name: p for p in graph.kernels}
+        served = []
+        for rd in rounds:
+            for it, _, _ in rd:
+                p = by_name.get(it.name)
+                if p is None:
+                    self._skip("sliced")
+                    return None
+                served.append(p)
+        if (len(served) != graph.n
+                or len({id(p) for p in served}) != graph.n):
+            self._skip("partial")
+            return None
+        ev = GatedDeltaEvaluator(self.device, graph.edges_by_id())
+        try:
+            t_served = ev.rebase(served)
+        except ValueError:
+            self._skip("illegal")
+            return None
+        k = int(getattr(self.policy, "audit_k", 50))
+        baselines = graph.random_topological_orders(k,
+                                                    seed=self._seed())
+        times = []
+        saved = 0.0
+        for cand in baselines:
+            first = len(cand)
+            for i, (a, b) in enumerate(zip(served, cand)):
+                if a is not b:
+                    first = i
+                    break
+            if first == len(cand):
+                times.append(t_served)
+                saved += 1.0
+                continue
+            t, frac = ev.evaluate_costed(cand, first)
+            saved += max(0.0, 1.0 - frac)
+            times.append(t)
+        pct = percentile_rank(t_served, times)
+        return self._record(pct, t_served, len(times), saved,
+                            arch=arch, kind=kind, currency="gated")
 
     # -- flat steps: round currency -------------------------------------
     def audit_flat(self, rounds, *, weights_bytes: float, arch: str,

@@ -1,5 +1,6 @@
 """Serving engine with symbiotic round scheduling (the port of the
-reference's ``repro.serve.engine``, flat path).
+reference's ``repro.serve.engine``: the flat path and the unsliced
+dependency-aware path).
 
 Every unit of pending work is characterised as a roofline work item —
 a **prefill chunk** (compute-bound) or a **decode step**
@@ -16,7 +17,13 @@ under ``torch.inference_mode()`` on the parameters' device.  On a CUDA
 device every ``decode_step`` goes through the port's RMSNorm and
 decode-attention kernels.
 
-The dependency-aware path (``respect_deps``) comes with the DAG slice.
+With ``respect_deps`` every live request expands into its traced chain
+of layer-stage work items (:func:`build_dag_triples`), composed by the
+ready-set greedy over the per-layer dependency graph; interior stages
+only shape the modelled rounds, and a request still executes exactly
+once per step, at its chain's tail.  Kernel slicing
+(``slice_policy``) and the live composition
+(``composition="incremental"``) come with a later slice and raise.
 """
 
 from __future__ import annotations
@@ -28,14 +35,16 @@ import numpy as np
 import torch
 
 from ..core.tpu import (TpuWorkItem, decode_profile, make_serving_device,
-                        prefill_profile, round_time)
+                        prefill_profile)
+from ..graph.kernel_graph import trace_arch
 from ..models import transformer as T
 from ..models.common import ModelConfig
 from ..obs import LatencyTracker, MetricsRegistry, phase_breakdown
 from .cache import ScheduleCache
 from .composer import Composer
 
-__all__ = ["Request", "ServingEngine", "SchedulerPolicy"]
+__all__ = ["Request", "ServingEngine", "SchedulerPolicy",
+           "build_dag_triples"]
 
 
 @dataclass
@@ -58,14 +67,39 @@ class SchedulerPolicy:
     #: repro_torch.core.refine)
     neighborhood: str = "auto"
     #: Schedule the per-layer dependency graph instead of flat
-    #: per-request items (not ported yet: raises).
+    #: per-request items: each live request expands into its traced
+    #: chain of layer-stage work items (repro_torch.graph.trace_arch)
+    #: and the ready-set greedy (repro_torch.graph.greedy_order_dag)
+    #: composes rounds that interleave *different* requests' stages
+    #: while chains stay ordered.  The ScheduleCache keys such steps by
+    #: the multiset of per-request chain signatures (kind, kv bucket,
+    #: stage count): ``dag_hits`` in ``ScheduleCache.stats()``.
     respect_deps: bool = False
+    #: Kernel slicing on the respect_deps path (the reference's
+    #: ``repro.slice.SlicePolicy``): not ported yet, so anything but
+    #: None raises.
+    slice_policy: object | None = None
+    #: Optional stage coarsening for deep configs on the respect_deps
+    #: path (see trace_arch(max_stages=...)); None = one item per
+    #: layer stage.
+    dag_max_stages: int | None = None
     #: objective for kind="refined": "rounds" re-rounds every candidate
     #: under the TPU round cost model (weight stream charged once per
     #: round); "event" / "round" refine the flat launch order under the
     #: corresponding core simulator, delta-evaluated by the
     #: checkpointing :class:`repro_torch.core.refine.DeltaEvaluator`.
+    #: On the respect_deps path "gated" refines under the gated DAG
+    #: makespan itself (:class:`repro_torch.graph.delta.GatedDeltaEvaluator`).
     refine_model: str = "rounds"
+    #: Guard currency for the respect_deps path: "rounds" compares
+    #: compositions against dep-aware arrival order under the TPU round
+    #: cost model (each round charged its distinct stages' weight
+    #: streams); "gated" compares gated-event makespans of the
+    #: compositions' flat launch orders
+    #: (:class:`repro_torch.serve.composer.GatedGuard`, delta-evaluated
+    #: per step; saved full-simulation equivalents in
+    #: ``ScheduleCache.stats()["gated_sims_saved"]``).
+    dag_guard: str = "rounds"
     #: ScheduleCache: reuse round compositions across steps whose
     #: work-item mix is equivalent (decode kv-lens bucketized).
     cache: bool = True
@@ -105,6 +139,45 @@ class SchedulerPolicy:
     #: Candidate batch per vectorized pass when
     #: ``refine_backend="batched"``.
     refine_batch: int = 128
+    #: How the respect_deps path composes across steps: "batch"
+    #: recomposes every step (through the ScheduleCache);
+    #: "incremental" (the reference's live frontier,
+    #: ``repro.serve.live``) is not ported yet and raises.
+    composition: str = "batch"
+
+
+def build_dag_triples(cfg: ModelConfig, reqs: list[Request], *,
+                      n_params: float, kv_bytes_per_token: float,
+                      max_stages: int | None = None):
+    """Trace live requests into per-layer work items.
+
+    Every request expands into its traced chain of layer-stage items
+    (:func:`repro_torch.graph.trace_arch`).  Only the *tail* item of a
+    chain carries its executable kind ``"prefill"``/``"decode"`` — the
+    engine executes a request's forward pass exactly, as one unit —
+    while interior stages carry kind ``"frag"`` and exist for round
+    composition and modelled time only.  Returns ``(triples,
+    traced)``.
+    """
+    spec = []
+    for r in reqs:
+        if r.cache is None:
+            spec.append(("prefill", int(len(r.prompt))))
+        else:
+            spec.append(("decode", r.pos))
+    traced = trace_arch(cfg, spec, n_params=n_params,
+                        kv_bytes_per_token=kv_bytes_per_token,
+                        max_stages=max_stages)
+    triples = []
+    for i, it in enumerate(traced.items):
+        owner = traced.owners[i]
+        r = reqs[owner]
+        if i == traced.tail_of[owner]:
+            kind = "prefill" if r.cache is None else "decode"
+        else:
+            kind = "frag"
+        triples.append((it, r, kind))
+    return triples, traced
 
 
 def _param_device(params) -> torch.device:
@@ -125,11 +198,15 @@ class ServingEngine:
         self.params = params
         self.max_len = max_len
         self.policy = policy or SchedulerPolicy()
-        if self.policy.respect_deps:
+        if self.policy.slice_policy is not None:
             raise NotImplementedError(
-                "respect_deps needs repro.graph, repro.slice and "
-                "serve.live, which are not ported yet (ROADMAP: "
-                "'Dependency-aware composition')")
+                "slice_policy needs repro.slice, which is not ported yet "
+                "(ROADMAP: 'Kernel slicing and the live composition')")
+        if self.policy.composition == "incremental":
+            raise NotImplementedError(
+                "composition='incremental' needs serve.live, which is not "
+                "ported yet (ROADMAP: 'Kernel slicing and the live "
+                "composition')")
         self.n_params = n_params or float(T.count_params(params))
         #: the scheduler's device model (the v5e round cost model); the
         #: tensors run on :attr:`exec_device`
@@ -197,6 +274,15 @@ class ServingEngine:
                 items.append((it, r, "decode"))
         return items
 
+    def _work_items_dag(self):
+        """Per-layer work items for the ``respect_deps`` path
+        (see :func:`build_dag_triples`)."""
+        reqs = [r for r in self.queue if not r.done]
+        return build_dag_triples(
+            self.cfg, reqs, n_params=self.n_params,
+            kv_bytes_per_token=self._kv_bytes_per_token(),
+            max_stages=self.policy.dag_max_stages)
+
     # -- execution -------------------------------------------------------
     def submit(self, reqs: list[Request]) -> None:
         self.queue.extend(reqs)
@@ -231,6 +317,11 @@ class ServingEngine:
         """One scheduling iteration: compose rounds from the current
         queue and execute them.  Returns the number of rounds run.
 
+        On the ``respect_deps`` path a round may contain interior chain
+        stages (kind ``"frag"``): they contribute to the round's
+        modelled time but trigger no execution — the request's exact
+        forward pass runs once, at its chain's tail item.
+
         The composition pipeline is timed under the ``phase_compose``
         histogram and the execution loop under ``phase_execute``;
         sampled steps run the online quality audit under
@@ -240,21 +331,35 @@ class ServingEngine:
         self.metrics.counter("engine_steps").inc()
         phase0 = {ph: self.metrics.histogram(f"phase_{ph}").total
                   for ph in ("compose", "guard", "refine", "execute")}
+        traced = None
         with self.metrics.timer("phase_compose"):
-            items = self._work_items()
-            if not items:
-                return 0
-            rounds = self.composer.compose(items)
+            if self.policy.respect_deps:
+                triples, traced = self._work_items_dag()
+                if not triples:
+                    return 0
+                rounds = self.composer.compose_dag(triples, traced)
+                time_of = self.composer.dag_round_time
+            else:
+                items = self._work_items()
+                if not items:
+                    return 0
+                rounds = self.composer.compose(items)
+                time_of = self.composer.flat_round_time
         aud = self.composer.auditor
         if aud.sample_step():
             with self.metrics.timer("phase_audit"):
-                aud.audit_flat(rounds, weights_bytes=self.weights_bytes,
-                               arch=self.cfg.name, kind=self.policy.kind)
+                if traced is not None:
+                    aud.audit_dag(rounds, traced, arch=self.cfg.name,
+                                  kind=self.policy.kind)
+                else:
+                    aud.audit_flat(rounds,
+                                   weights_bytes=self.weights_bytes,
+                                   arch=self.cfg.name,
+                                   kind=self.policy.kind)
         n = 0
         with self.metrics.timer("phase_execute"), torch.inference_mode():
             for rd in rounds:
-                rt = round_time([t[0] for t in rd], self.device,
-                                self.weights_bytes)
+                rt = time_of(rd)
                 self._round_times.append(rt)
                 if self.trace is not None:
                     t0 = self._trace_t
@@ -269,7 +374,7 @@ class ServingEngine:
                 for it, r, kind in rd:
                     if kind == "prefill":
                         self._exec_prefill(r)
-                    else:
+                    elif kind == "decode":
                         self._exec_decode(r)
                 n += 1
         # Latency accounting: split this step's measured phase wall

@@ -377,11 +377,10 @@ def test_cpu_hybrid_forward_counts_no_launch():
     assert "mamba_scan" in launch_counts()
 
 
-def test_only_mla_and_xlstm_raise():
+def test_only_xlstm_raises():
     for arch in ref_configs.arch_names():
         cfg = pt_configs.get_config(arch, "smoke")
-        if cfg.attn_type == "mla" or {"mlstm", "slstm"} & set(
-                cfg.block_pattern):
+        if {"mlstm", "slstm"} & set(cfg.block_pattern):
             with pytest.raises(NotImplementedError):
                 PT.check_supported(cfg)
         else:

@@ -402,6 +402,23 @@ def test_flash_attention_plain_odd_shapes_match_oracle(ref, B, S, H, Hkv, D,
 # --------------------------------------------------------------------------
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [512, 1536, 5120])
+def test_rmsnorm_kernel_at_deepseek_widths_on_card(cuda, D):
+    """deepseek-v2's kv_norm (512), q_norm (1536) and d_model (5120)
+    widths at a prefill's 4,096 rows, bf16; two calls give the same
+    bits."""
+    g = torch.Generator().manual_seed(D)
+    x = torch.randn(4096, D, generator=g).to(cuda, torch.bfloat16)
+    s = (torch.randn(D, generator=g) * 0.1 + 1.0).to(cuda)
+    out = rmsnorm_rows(x, s)
+    torch.cuda.synchronize()
+    tol = _TOL["bfloat16"]
+    torch.testing.assert_close(out.float(), rmsnorm_rows_plain(x, s).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(out, rmsnorm_rows(x, s))
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("R", [1, 64])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_rmsnorm_kernel_matches_plain_on_card(cuda, R, dtype):

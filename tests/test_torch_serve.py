@@ -217,9 +217,16 @@ def test_refined_engine_matches_reference(smoke_f32, monkeypatch,
 
 
 def test_unported_policies_raise(smoke_f32):
+    """Kernel slicing and the live composition are not ported yet; the
+    dependency-aware path itself runs (tests/test_torch_graph.py)."""
     _, _, cfg, port = smoke_f32
     with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, port, policy=SchedulerPolicy(respect_deps=True))
+        ServingEngine(cfg, port, policy=SchedulerPolicy(
+            respect_deps=True, slice_policy=object()))
+    with pytest.raises(NotImplementedError):
+        ServingEngine(cfg, port, policy=SchedulerPolicy(
+            respect_deps=True, composition="incremental"))
+    ServingEngine(cfg, port, policy=SchedulerPolicy(respect_deps=True))
 
 
 def test_serve_on_cpu_when_asked():
