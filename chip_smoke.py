@@ -150,10 +150,35 @@ no phase catches its own failure:
               through ``ServingEngine`` on §5's requests as in §16:
               every request finishes, exactly 16 decode-attention and 33
               RMSNorm launches a step, ms per step beside the weight-read
-              floor, and a decode profile.
+              floor, and a decode profile;
+19. serve-live — qwen1.5-0.5b at full width (bf16, weights drawn on
+              the card) behind ``ServingFrontend`` over 2 replicas with
+              ``respect_deps``, slicing under the gated guard on a
+              ``LIVE_SLOTS``-token slot budget and
+              ``composition="incremental"``, on a seeded Poisson and a
+              bursty workload whose arrivals come while a step is in
+              flight: every request finishes with a flat
+              ``ServingEngine``'s tokens, exactly 49 RMSNorm and 24
+              decode-attention launches per decode step, the live
+              counters, slice rounds and round count, ms per decode step,
+              ``phase_compose`` ms per step against
+              ``composition="batch"`` on the Poisson workload (the same
+              tokens), the device's busy share (a short bursty run under
+              the profiler), and the obs round trip: a replica's
+              ``ScheduleTrace`` to Chrome trace JSON, every registry's
+              counters and gauges through ``prometheus_text`` and
+              ``parse_prometheus_text``, the ``FlightRecorder``'s events
+              through JSONL.
+
+§4 also times flash attention and SDPA at qwen's B 1 x S 32768.  §9 also
+serves the three traced archs with ``respect_deps`` sliced and sliced
+through the live composition (two requests arriving at iteration 2, a
+6-token slot budget, the gated guard) on both devices: tokens, rounds,
+slice rounds, modelled time and cache counters identical.
 
 The kernels' record counts each kernel's launches on the main paths:
-the decode steps of §5, §16 and §18 and the prefills of §7 and §18.
+the decode steps of §5, §16, §18 and §19 and the prefills of §7 and
+§18.
 The last lines are the kernels' JSON record, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes a
 fuller JSON report (every timing repeat, the profiles' top kernels).
@@ -183,6 +208,20 @@ SRC = HERE / "src"
 HBM_BPS = 3.35e12
 PEAK_OPS = {torch.bfloat16: 989e12, torch.float32: 67e12}
 TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+#: §19's workloads: requests a workload, prompt and new-token ranges,
+#: arrivals in the cheapest solo prefill's modelled time, the serving
+#: device model's slot budget (prompts above it are oversized stages)
+#: and the stage coarsening (None: every layer's two stages)
+LIVE_REQUESTS = 6
+LIVE_PROMPT = (24, 192)
+LIVE_NEW = (8, 16)
+LIVE_ARRIVALS_PER_STEP = 4
+LIVE_SLOTS = 128
+LIVE_MAX_STAGES = None
+#: the profiled bursty workload (device busy share): requests, prompt and
+#: new-token ranges
+LIVE_PROFILED = (2, (24, 64), (4, 8))
 
 
 class SmokeFailure(RuntimeError):
@@ -276,6 +315,13 @@ def profiled(block, tries: int = 5, on_prof=None):
         time.sleep(1.0)
     raise SmokeFailure(f"the profiler recorded no device activity in "
                        f"{tries} sessions")
+
+
+def slice_rounds(trace) -> int:
+    """Rounds of an engine's schedule trace that hold a slice: the
+    engine records each round's members as spans starting at the
+    round's start."""
+    return len({s[2] for s in trace.spans if "#s" in s[1]})
 
 
 def flash_causal_ops(B: int, S: int, H: int, D: int, window=None,
@@ -585,7 +631,12 @@ def main(argv=None) -> int:
     from repro_torch.launch.serve import serve
     from repro_torch.models import transformer as T
     from repro_torch.models.moe import MoE
-    from repro_torch.serve import Request, SchedulerPolicy, ServingEngine
+    from repro_torch.core.tpu import make_serving_device
+    from repro_torch.obs import (FlightRecorder, ScheduleTrace,
+                                 parse_prometheus_text, prometheus_text)
+    from repro_torch.serve import (Request, SchedulerPolicy, ServingEngine,
+                                   ServingFrontend, make_workload)
+    from repro_torch.slice import SlicePolicy
 
     import torch.nn.functional as F
 
@@ -1038,14 +1089,17 @@ def main(argv=None) -> int:
     del cache32k, jamba_kv
     torch.cuda.empty_cache()
     kern["decode_attention"] = att["L128"]
-    # flash attention at the shapes of §3, qwen's prefill B 8 and jamba's
-    # (no plain time there: 17 GB of f32 scores in one call); SDPA gets its
-    # own (B, H, S, D) layout, the KV heads repeated to H and the window as
-    # a boolean mask, ready-made, so its time has none of that in it
+    # flash attention at the shapes of §3, qwen's prefill B 8, qwen's
+    # B 1 x S 32768 and jamba's (no plain time at the last two: 17 GB of
+    # f32 scores in one call at jamba's, 4.3 GB a head at S 32768); SDPA
+    # gets its own (B, H, S, D) layout, the KV heads repeated to H and the
+    # window as a boolean mask, ready-made, so its time has none of that
+    # in it
     flash_t = {}
     for key, (B, S, H, Hkv, D, causal, window) in {
             "qwen": (1, 4096, 16, 16, 64, True, None),
             "qwen_B8": (8, 4096, 16, 16, 64, True, None),
+            "qwen_S32768": (1, spec_32k.seq_len, 16, 16, 64, True, None),
             "gqa_window": (1, 2048, 32, 8, 128, True, 1024),
             "hubert": (1, 1000, 16, 16, 80, False, None),
             "jamba": (8, 4096, 32, 8, 128, True, None)}.items():
@@ -1066,7 +1120,7 @@ def main(argv=None) -> int:
         flash_t[key] = {
             "ms": timed(f"flash_attention.{key}",
                         lambda: flash_attention(q, k, v, **kw), n=20, warm=3),
-            "plain_ms": None if key == "jamba" else timed(
+            "plain_ms": None if key in ("jamba", "qwen_S32768") else timed(
                 f"flash_attention.{key}.plain",
                 lambda: flash_attention_plain(q, k, v, **kw), n=5, warm=2),
             "library_ms": timed(
@@ -1497,6 +1551,13 @@ def main(argv=None) -> int:
     # flip: its replay is held at 1e-3 in an f32 cache and at 1e-2 in the
     # bf16 one
     report["card_vs_cpu"] = {}
+    tiny_slots = make_serving_device(token_budget=6)
+    deps_policies = {
+        "unsliced": {},
+        "sliced": {"slice_policy": SlicePolicy(), "dag_guard": "gated"},
+        "incremental_sliced": {"slice_policy": SlicePolicy(),
+                               "dag_guard": "gated",
+                               "composition": "incremental"}}
     for arch in ("qwen1.5-0.5b", "jamba-v0.1-52b", "mixtral-8x7b",
                  "deepseek-v2-236b"):
         cfg = get_config(arch, "smoke").replace(dtype="float32")
@@ -1515,15 +1576,30 @@ def main(argv=None) -> int:
             out = eng.run()
             out_d = None
             if deps:
-                eng = ServingEngine(cfg, params, max_len=64,
-                                    policy=SchedulerPolicy(
-                                        kind="symbiotic", respect_deps=True))
-                eng.submit([Request(r.rid, r.prompt, max_new_tokens=8)
-                            for r in reqs])
-                out_d = eng.run()
-                require(out_d["outputs"] == out["outputs"],
-                        f"{arch} on {where}: respect_deps tokens differ "
-                        "from the flat path's")
+                # respect_deps unsliced, then sliced and sliced through the
+                # live composition, two requests arriving at iteration 2
+                # so that prefills meet decodes; the sliced ones on a
+                # 6-token slot budget (the smoke prompts' prefill stages
+                # oversized) under the gated guard, the currency in which
+                # slices co-executing with decodes win; a trace counts
+                # the rounds that hold a slice
+                out_d = {}
+                for key, kw in deps_policies.items():
+                    eng = ServingEngine(cfg, params, max_len=64,
+                                        device=(tiny_slots if "slice_policy"
+                                                in kw else None),
+                                        trace=ScheduleTrace(),
+                                        policy=SchedulerPolicy(
+                                            kind="symbiotic",
+                                            respect_deps=True, **kw))
+                    fresh = [Request(r.rid, r.prompt, max_new_tokens=8)
+                             for r in reqs]
+                    eng.submit(fresh[:2])
+                    out_d[key] = eng.run(arrivals=[(2, fresh[2:])])
+                    out_d[key]["slice_rounds"] = slice_rounds(eng.trace)
+                    require(out_d[key]["outputs"] == out["outputs"],
+                            f"{arch} on {where}: respect_deps ({key}) tokens "
+                            "differ from the flat path's")
 
             def replay(dtype):
                 cache = T.init_cache(cfg, 1, 64, dtype, device=where)
@@ -1571,19 +1647,38 @@ def main(argv=None) -> int:
             require(diff16 < 1e-2, f"{arch}: card and CPU logits differ by "
                     f"{diff16} with a bf16 cache")
             rec["max_logit_diff_bf16_cache"] = diff16
-        if deps:
-            print(f"[card/cpu] {arch} smoke respect_deps: tokens identical "
-                  f"on both devices and to the flat path's: "
-                  f"{d_gpu['outputs'] == d_cpu['outputs']}; rounds "
-                  f"{d_gpu['rounds']} vs {d_cpu['rounds']} (flat "
-                  f"{o_gpu['rounds']}); modelled_time_s equal: "
-                  f"{d_gpu['modelled_time_s'] == d_cpu['modelled_time_s']}")
-            require(d_gpu["outputs"] == d_cpu["outputs"]
-                    and d_gpu["rounds"] == d_cpu["rounds"]
-                    and d_gpu["modelled_time_s"] == d_cpu["modelled_time_s"]
-                    and d_gpu["schedule_cache"] == d_cpu["schedule_cache"],
-                    f"{arch}: respect_deps differs between card and CPU")
-            rec["respect_deps_rounds"] = d_gpu["rounds"]
+        for key in (d_gpu or {}):
+            g, c = d_gpu[key], d_cpu[key]
+            sc = g["schedule_cache"]
+            print(f"[card/cpu] {arch} smoke respect_deps {key}: tokens "
+                  f"identical on both devices and to the flat path's: "
+                  f"{g['outputs'] == c['outputs']}; rounds {g['rounds']} vs "
+                  f"{c['rounds']} (flat {o_gpu['rounds']}), slice rounds "
+                  f"{g['slice_rounds']} vs {c['slice_rounds']}; modelled_time_s "
+                  f"equal: {g['modelled_time_s'] == c['modelled_time_s']}; "
+                  f"stats equal: {sc == c['schedule_cache']} (dag_hits "
+                  f"{sc['dag_hits']}, incremental_joins "
+                  f"{sc['incremental_joins']}, incremental_leaves "
+                  f"{sc['incremental_leaves']}, frontier_rebuilds "
+                  f"{sc['frontier_rebuilds']})")
+            require(g["outputs"] == c["outputs"]
+                    and g["rounds"] == c["rounds"]
+                    and g["slice_rounds"] == c["slice_rounds"]
+                    and g["modelled_time_s"] == c["modelled_time_s"]
+                    and g["schedule_cache"] == c["schedule_cache"],
+                    f"{arch}: respect_deps ({key}) differs between card and "
+                    "CPU")
+            rec[f"respect_deps_{key}"] = {
+                "rounds": g["rounds"], "slice_rounds": g["slice_rounds"],
+                "modelled_time_s_v5e_cost_model": g["modelled_time_s"],
+                "schedule_cache": sc}
+        if d_gpu:
+            require(d_gpu["incremental_sliced"]["schedule_cache"]
+                    ["incremental_joins"] >= 1
+                    and d_gpu["sliced"]["slice_rounds"] >= 1
+                    and d_gpu["incremental_sliced"]["slice_rounds"] >= 1,
+                    f"{arch}: the live composition joined no chain, or no "
+                    "stage was sliced")
         report["card_vs_cpu"][arch] = rec
         del side, params, eng
 
@@ -2026,19 +2121,285 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
+    # 19. the sliced, incremental front end at full width ------------------
+    # Two seeded workloads (Poisson, bursty) of LIVE_REQUESTS requests each
+    # through ServingFrontend over 2 replicas: respect_deps over every
+    # layer's stages, slicing under the gated guard on a LIVE_SLOTS-token
+    # slot budget (prompts above it are oversized stages, so cutting
+    # triggers), the live composition.  The arrival rate puts
+    # LIVE_ARRIVALS_PER_STEP arrivals into the modelled time of the
+    # cheapest solo prefill, so requests arrive while a replica's step is
+    # in flight and join the next one.  Every request's tokens must equal
+    # a flat ServingEngine's (batch composition, no slicing); the Poisson
+    # workload also runs with composition "batch" for the compose cost;
+    # a short bursty workload (LIVE_PROFILED) runs under the profiler for
+    # the device's busy share.
+    cfg_q = get_config("qwen1.5-0.5b", "full")
+    print(f"[serve-live] qwen1.5-0.5b full width, bf16, weights drawn on "
+          f"the card from seed 0; ServingFrontend over 2 replicas, "
+          f"respect_deps (dag_max_stages {LIVE_MAX_STAGES}: every layer's "
+          f"two stages), slicing under the gated guard on a {LIVE_SLOTS}-"
+          f"token slot budget, composition incremental; {LIVE_REQUESTS} "
+          f"requests a workload, prompts {LIVE_PROMPT[0]}-{LIVE_PROMPT[1]} "
+          f"tokens, {LIVE_NEW[0]}-{LIVE_NEW[1]} new tokens")
+    params, n_q, _ = draw(cfg_q, "serve-live")
+    require(n_q == 463_987_712, f"qwen parameters {n_q}")
+    live_dev = make_serving_device(token_budget=LIVE_SLOTS)
+
+    def live_policy(composition):
+        return SchedulerPolicy(kind="symbiotic", respect_deps=True,
+                               slice_policy=SlicePolicy(), dag_guard="gated",
+                               composition=composition,
+                               dag_max_stages=LIVE_MAX_STAGES)
+
+    def workload(process, rate, seed, shape=(LIVE_REQUESTS, LIVE_PROMPT,
+                                             LIVE_NEW)):
+        n, prompt_len, new = shape
+        return make_workload(process, n, rate, seed=seed,
+                             prompt_len=prompt_len, max_new_tokens=new,
+                             vocab=cfg_q.vocab)
+
+    def live_run(process, composition, rate, seed, **kw):
+        """One frontend run, the launch counters set to 0 just before and
+        read just after; a schedule trace on each replica, one flight
+        recorder for the pool."""
+        rec = FlightRecorder()
+        fe = ServingFrontend.build(cfg_q, params, n_replicas=2,
+                                   max_len=512, device=live_dev,
+                                   recorder=rec,
+                                   policy=live_policy(composition))
+        for i, eng in enumerate(fe.engines):
+            eng.trace = ScheduleTrace(label=f"replica {i}")
+        wl = workload(process, rate, seed, **kw)
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        st = fe.run(wl)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        return fe, wl, st, rec, launch_counts(), wall
+
+    live_rep = {}
+    live_counts = {}
+
+    def check_live(label, wl, st, outs, counts) -> int:
+        """Every request finished, and the counters saw exactly 49
+        RMSNorm and 24 decode-attention launches per decode step (the
+        prompt replays' and the decodes'); returns the decode steps."""
+        reqs = [r for _, r in wl]
+        steps = sum(len(r.prompt) for r in reqs) + sum(
+            len(t) - 1 for t in outs.values())
+        require(st["rejected"] == 0 and len(outs) == len(reqs)
+                and all(len(outs[r.rid]) == r.max_new_tokens for r in reqs),
+                f"serve-live {label}: not every request finished: "
+                f"{st['rejected']} rejected, {outs}")
+        full = {"rmsnorm": 49 * steps, "decode_attention": 24 * steps,
+                "flash_attention": 0, "event_scan": 0, "mamba_scan": 0}
+        require(counts == full, f"serve-live {label}: launches {counts} "
+                f"over {steps} decode steps; want 49 RMSNorm and 24 decode "
+                "attention per step")
+        for kk, v in counts.items():
+            live_counts[kk] = live_counts.get(kk, 0) + v
+        return steps
+    for k, process in enumerate(("poisson", "bursty")):
+        seed = 19 + k
+        probe = ServingFrontend.build(cfg_q, params, n_replicas=2,
+                                      max_len=512, device=live_dev,
+                                      policy=live_policy("incremental"))
+        solo = min(probe.solo_cost_s(0, r)
+                   for _, r in workload(process, 1.0, seed))
+        rate = LIVE_ARRIVALS_PER_STEP / solo
+        del probe
+        fe, wl, st, rec, counts, wall = live_run(process, "incremental",
+                                                 rate, seed)
+        outs = fe.outputs()
+        steps = check_live(process, wl, st, outs, counts)
+        # the same requests through a flat engine: the same tokens
+        flat = ServingEngine(cfg_q, params, max_len=512,
+                             policy=SchedulerPolicy(kind="symbiotic"))
+        flat.submit([r for _, r in workload(process, rate, seed)])
+        flat_out = flat.run()["outputs"]
+        require(flat_out == outs, f"serve-live {process}: tokens differ "
+                "from the flat engine's")
+        sc = [e.schedule_cache.stats() for e in fe.engines]
+        live_stats = {key: sum(s[key] for s in sc)
+                      for key in ("incremental_joins", "incremental_leaves",
+                                  "frontier_rebuilds", "dag_hits")}
+        n_rounds = sum(len(e._round_times) for e in fe.engines)
+        n_slice_rounds = sum(slice_rounds(e.trace) for e in fe.engines)
+        eng_steps = sum(fe._steps)
+        compose_s = sum(e.metrics.histogram("phase_compose").total
+                        for e in fe.engines)
+        execute_s = sum(e.metrics.histogram("phase_execute").total
+                        for e in fe.engines)
+        require(live_stats["incremental_joins"] >= 1
+                and live_stats["incremental_leaves"] >= 1
+                and n_slice_rounds >= 1,
+                f"serve-live {process}: the live frontier joined or retired "
+                f"nothing, or no stage was sliced ({live_stats}, "
+                f"{n_slice_rounds} slice rounds)")
+        rep = {"process": process, "seed": seed,
+               "rate_per_modelled_s": rate, "solo_prefill_modelled_s": solo,
+               "requests": LIVE_REQUESTS,
+               "prompt_tokens": sum(len(r.prompt) for _, r in wl),
+               "new_tokens": sum(len(t) for t in outs.values()),
+               "decode_steps": steps, "engine_steps": eng_steps,
+               "ticks": st["ticks"], "rounds": n_rounds,
+               "slice_rounds": n_slice_rounds, **live_stats,
+               "wall_s": wall, "ms_per_decode_step": wall * 1e3 / steps,
+               "execute_ms_per_decode_step": execute_s * 1e3 / steps,
+               "phase_compose_ms_per_step": compose_s * 1e3 / eng_steps,
+               "launches": counts,
+               "modelled_v5e": {
+                   "virtual_time_s": st["virtual_time_s"],
+                   "p50_s": st["latency"]["p50_s"],
+                   "p99_s": st["latency"]["p99_s"],
+                   "queue_p99_s": st["latency"]["queue_p99_s"],
+                   "goodput_tokens_per_s":
+                       st["latency"]["goodput_tokens_per_s"],
+                   "queue_depth_max": st["queue_depth_max"],
+                   "deferred_events": st["deferred_events"]}}
+        print(f"[serve-live] {process} (seed {seed}, {rate:.5g} arrivals "
+              f"per modelled second, {LIVE_ARRIVALS_PER_STEP} in the "
+              f"cheapest solo prefill's {solo:.4g} s): every request "
+              f"finished with the flat engine's tokens; {steps} decode "
+              f"steps, {eng_steps} engine steps over {st['ticks']} ticks, "
+              f"{n_rounds} rounds ({n_slice_rounds} holding a slice); "
+              f"incremental_joins {live_stats['incremental_joins']}, "
+              f"incremental_leaves {live_stats['incremental_leaves']}, "
+              f"frontier_rebuilds {live_stats['frontier_rebuilds']}; "
+              f"launches {counts} (49 RMSNorm and 24 decode attention a "
+              f"decode step)")
+        print(f"[serve-live]   wall {wall:.3f} s: "
+              f"{rep['ms_per_decode_step']:.4f} ms per decode step "
+              f"({rep['execute_ms_per_decode_step']:.4f} ms in "
+              f"phase_execute; weight-read floor {floor_ms:.4f} ms), "
+              f"phase_compose {rep['phase_compose_ms_per_step']:.3f} ms per "
+              f"engine step; modelled on the TPU v5e cost model (virtual "
+              f"seconds, not this card): p50 {st['latency']['p50_s']:.4g} s, "
+              f"p99 {st['latency']['p99_s']:.4g} s, queue p99 "
+              f"{st['latency']['queue_p99_s']:.4g} s, queue depth max "
+              f"{st['queue_depth_max']}")
+        if process == "bursty":
+            # the device's busy share on a short bursty workload under the
+            # profiler (a session that records nothing reruns it on a
+            # fresh pool, the counters set to 0 again)
+            rows, (fe_p, wl_p, st_p, _, counts_p, wall_p), _ = profiled(
+                lambda: live_run(process, "incremental", rate, seed,
+                                 shape=LIVE_PROFILED))
+            steps_p = check_live(f"{process} profiled", wl_p, st_p,
+                                 fe_p.outputs(), counts_p)
+            busy_us = sum(r[1] for r in rows)
+            rep["profiled"] = {
+                "requests": LIVE_PROFILED[0], "decode_steps": steps_p,
+                "wall_s": wall_p,
+                "ms_per_decode_step": wall_p * 1e3 / steps_p,
+                "device_busy_ms_per_decode_step": busy_us / 1e3 / steps_p,
+                "device_busy_share": busy_us / 1e6 / wall_p,
+                "device_events_per_decode_step":
+                    sum(r[2] for r in rows) / steps_p,
+                "top": [{"name": n[:80], "device_us": tt, "calls": c}
+                        for n, tt, c in rows[:8]]}
+            pr = rep["profiled"]
+            print(f"[serve-live]   profiled ({LIVE_PROFILED[0]} bursty "
+                  f"requests, {steps_p} decode steps, {wall_p:.3f} s under "
+                  f"the profiler, {pr['ms_per_decode_step']:.4f} ms per "
+                  f"decode step): device busy "
+                  f"{pr['device_busy_ms_per_decode_step']:.3f} ms per decode "
+                  f"step, {pr['device_busy_share']:.1%} of the wall, "
+                  f"{pr['device_events_per_decode_step']:.0f} kernels and "
+                  "copies per decode step; top:")
+            for r in pr["top"][:6]:
+                print(f"[serve-live]     {r['device_us'] / steps_p:9.2f} "
+                      f"us/decode step x{r['calls'] / steps_p:.0f}  "
+                      f"{r['name']}")
+        if process == "poisson":
+            # the same workload composed "batch": tokens and compose cost
+            fe_b, wl_b, st_b, _, counts_b, wall_b = live_run(
+                process, "batch", rate, seed)
+            require(fe_b.outputs() == outs, "serve-live: batch and "
+                    "incremental compositions served different tokens")
+            check_live(f"{process} batch", wl_b, st_b, fe_b.outputs(),
+                       counts_b)
+            compose_b = sum(e.metrics.histogram("phase_compose").total
+                            for e in fe_b.engines)
+            rep["batch"] = {
+                "engine_steps": sum(fe_b._steps),
+                "phase_compose_ms_per_step":
+                    compose_b * 1e3 / sum(fe_b._steps),
+                "wall_s": wall_b, "launches": counts_b,
+                "dag_hits": sum(e.schedule_cache.stats()["dag_hits"]
+                                for e in fe_b.engines)}
+            print(f"[serve-live]   phase_compose ms per engine step "
+                  f"(host): incremental "
+                  f"{rep['phase_compose_ms_per_step']:.3f}, batch "
+                  f"{rep['batch']['phase_compose_ms_per_step']:.3f} "
+                  f"(dag_hits {rep['batch']['dag_hits']}); batch served "
+                  f"the same tokens")
+            # obs round trip: the trace to Chrome/Perfetto JSON, the
+            # registries through the Prometheus text, the recorder's
+            # events through JSONL
+            tr = fe.engines[0].trace
+            doc = json.loads(json.dumps(tr.to_chrome()))
+            xs = [e for e in doc["traceEvents"] if e["ph"] == "X"]
+            require(len(xs) == len(tr.spans) > 0,
+                    "serve-live: the Chrome trace lost spans")
+            n_checked = 0
+            for reg in [fe.metrics] + [e.metrics for e in fe.engines]:
+                parsed = parse_prometheus_text(prometheus_text(reg))
+                for key, v in reg.snapshot().items():
+                    series, _, field = key.partition(".")
+                    if not field:
+                        pk = "repro_" + re.sub(r"=([^,}]*)", r'="\1"',
+                                               series)
+                        require(parsed.get(pk) == v, f"serve-live: "
+                                f"Prometheus round trip of {key}: "
+                                f"{parsed.get(pk)} != {v}")
+                        n_checked += 1
+            events = rec.events
+            kinds = {}
+            for e in events:
+                kinds[e["kind"]] = kinds.get(e["kind"], 0) + 1
+            require(FlightRecorder.load(rec.to_jsonl()) == events
+                    and kinds.get("admit") == LIVE_REQUESTS
+                    and kinds.get("frontend_step") == st["ticks"]
+                    and kinds.get("schedule", 0) >= 1,
+                    f"serve-live: flight recorder events {kinds}")
+            rep["obs"] = {"chrome_events": len(doc["traceEvents"]),
+                          "spans": len(tr.spans),
+                          "prometheus_samples_checked": n_checked,
+                          "recorder_events": kinds}
+            print(f"[serve-live]   obs: replica 0's trace -> "
+                  f"{len(doc['traceEvents'])} Chrome trace events "
+                  f"({len(tr.spans)} spans); {n_checked} counter and gauge "
+                  f"samples equal after prometheus_text -> "
+                  f"parse_prometheus_text; flight recorder {kinds}, equal "
+                  f"after its JSONL round trip")
+            if args.report is not None:
+                args.report.parent.mkdir(parents=True, exist_ok=True)
+                tr.dump(str(args.report.with_name("serve_live_trace.json")))
+        live_rep[process] = rep
+    live_rep["launches"] = live_counts
+    report["serve_live"] = live_rep
+    del params
+    torch.cuda.empty_cache()
+
     # record ----------------------------------------------------------------
     # launches on the main paths: qwen, deepseek and mixtral decode steps
-    # (§5, §16, §18), qwen and mixtral prefills (§7, §18)
+    # (§5, §16, §18), qwen and mixtral prefills (§7, §18), and the sliced,
+    # incremental front end's decode steps (§19)
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:26",
                            serve_counts["rmsnorm"]
                            + ds_serve_counts["rmsnorm"]
-                           + mixtral_decode_counts["rmsnorm"]),
+                           + mixtral_decode_counts["rmsnorm"]
+                           + live_counts["rmsnorm"]),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:68",
                                     serve_counts["decode_attention"]
                                     + mixtral_decode_counts[
-                                        "decode_attention"]),
+                                        "decode_attention"]
+                                    + live_counts["decode_attention"]),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:79",
                                    prefill_counts["flash_attention"]
@@ -2065,8 +2426,9 @@ def main(argv=None) -> int:
         args.report.write_text(json.dumps(report, indent=1))
     print(json.dumps(line))
     print(smi)
-    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
-                                             "count": count}}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
     return 0
 
 

@@ -22,10 +22,9 @@ serving configs.  Flat-order callers keep using
 When a workload carries *oversized* stages — profiles that saturate a
 device capacity on their own (long prefill chunks against the slot
 budget), which the ready-set greedy can only serialize into solo
-rounds — the reference goes one layer up to ``repro.slice``, whose
-``greedy_order_slices`` lazily cuts exactly those stages into
-co-schedulable slices (Kernelet-style); the port's slicing comes with a
-later slice.
+rounds — go one layer up to :mod:`repro_torch.slice`, whose
+:func:`~repro_torch.slice.greedy_order_slices` lazily cuts exactly those
+stages into co-schedulable slices (Kernelet-style).
 """
 
 from .constrained import greedy_order_dag, refine_order_dag

@@ -98,13 +98,16 @@ class Mamba:
         return F.silu(conv + p["conv_b"].to(xi.dtype))
 
     @staticmethod
-    def fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, *,
-            impl: str = "kernel") -> torch.Tensor:
+    def fwd(p: dict, cfg: ModelConfig, x: torch.Tensor, chunk: int = 128,
+            *, impl: str = "kernel") -> torch.Tensor:
         """x: (B, S, d) -> (B, S, d).  ``impl="kernel"`` (the default)
         scans through ``ops.mamba_scan``, whose output includes the
         ``D·x`` skip; ``impl="xla"`` through the plain twin of the
         reference's scan, then adds the skip in x's dtype as the
-        reference does."""
+        reference does.  ``chunk`` is accepted for the reference's
+        signature and ignored: there it shapes only the backward pass's
+        memory, and the port's scan keeps no activations."""
+        del chunk
         xi, z = dense(p["w_in"], x).chunk(2, dim=-1)
         xc = Mamba._conv(p, cfg, xi)
         dt, Bm, Cm = Mamba._dbc(p, cfg, xc)

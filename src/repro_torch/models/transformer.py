@@ -43,7 +43,7 @@ from .ssm import Mamba
 
 __all__ = ["init", "forward", "forward_features", "head_matrix",
            "prefill_logits", "prefill", "decode_step", "init_cache",
-           "unit_period", "count_params", "check_supported"]
+           "unit_period", "count_params", "model_flops", "check_supported"]
 
 
 # ---------------------------------------------------------------------------
@@ -319,10 +319,14 @@ def _decode_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
 
 
 def decode_step(params: dict, cfg: ModelConfig, tok: torch.Tensor,
-                cache: dict, pos: int) -> tuple[torch.Tensor, dict]:
+                cache: dict, pos: int, *,
+                unroll: bool = False) -> tuple[torch.Tensor, dict]:
     """One autoregressive step.  tok: (B,) int tokens or (B, 1, d)
     embeddings; pos: count of tokens already in the cache.  The cache
-    is updated in place and returned; logits are (B, vocab)."""
+    is updated in place and returned; logits are (B, vocab).
+    ``unroll`` is accepted for the reference's signature and has no
+    effect: the layer loop is always a Python loop."""
+    del unroll
     if cfg.input_mode == "tokens":
         x = _embed(params, cfg, tok[:, None])
     else:
@@ -333,13 +337,14 @@ def decode_step(params: dict, cfg: ModelConfig, tok: torch.Tensor,
     return logits[:, 0], cache
 
 
-def prefill(params: dict, cfg: ModelConfig, batch,
-            max_len: int) -> tuple[torch.Tensor, dict]:
+def prefill(params: dict, cfg: ModelConfig, batch, max_len: int, *,
+            impl: str = "xla") -> tuple[torch.Tensor, dict]:
     """Run the prompt through the model, returning (last-token logits,
     cache filled for positions [0, S)).  As in the reference, the prompt
     is replayed through :func:`decode_step` one position at a time into
-    a fresh bf16 cache, so it runs no full-sequence attention and takes
-    no ``impl``."""
+    a fresh bf16 cache, so it runs no full-sequence attention; ``impl``
+    is accepted and ignored, as the reference ignores it."""
+    del impl
     B, S = batch.shape[:2]
     cache = init_cache(cfg, B, max_len, device=batch.device)
     for s in range(S):
@@ -359,6 +364,12 @@ def _leaves(tree):
             yield from _leaves(v)
     else:
         yield tree
+
+
+def model_flops(cfg: ModelConfig, n_params_active: int,
+                n_tokens: int) -> float:
+    """MODEL_FLOPS = 6 * N_active * D (the roofline 'useful work' term)."""
+    return 6.0 * n_params_active * n_tokens
 
 
 def count_params(params: dict) -> int:

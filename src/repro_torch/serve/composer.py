@@ -1,13 +1,16 @@
 """Round composition for the serving engine (the port of the
-reference's ``repro.serve.composer``, unsliced).
+reference's ``repro.serve.composer``).
 
 :class:`Composer` is the per-step composition pipeline, parameterized
 by :class:`~repro_torch.serve.engine.SchedulerPolicy`: it turns the
 engine's pending work items into execution rounds — fifo packing,
-Algorithm 1 greedy (flat or ready-set DAG), optional refinement, the
-arrival-order cost-model guard, and the :class:`ScheduleCache` replay /
-warm-start paths.  It owns no queue and runs nothing: the engine keeps
-the step loop and exact execution.
+Algorithm 1 greedy (flat or ready-set DAG), optional slicing and
+refinement, the arrival-order cost-model guard, and the
+:class:`ScheduleCache` replay / warm-start paths.  It owns no queue and
+runs nothing: the engine keeps the step loop and exact execution, and
+the live-composition layer
+(:class:`~repro_torch.serve.live.LiveComposition`) keeps cross-step
+frontier state; both drive their composition through this class.
 
 ``kind="refined"`` polishes Algorithm 1's flat order by local search
 (:func:`repro_torch.core.refine.refine_order`) under the policy's
@@ -17,9 +20,7 @@ the host in float64, as in the reference.
 :class:`GatedGuard` is the per-step gated-makespan oracle for
 ``dag_guard="gated"``: one object per compose step, reusing
 :class:`~repro_torch.graph.delta.GatedDeltaEvaluator` checkpoints
-across the step's candidate compositions.  Kernel slicing
-(``policy.slice_policy``) and the live composition come with later
-slices; the ``#join`` handling here is the reference's, ready for them.
+across the step's candidate compositions.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ from ..graph.constrained import greedy_order_dag, refine_order_dag
 from ..graph.delta import GatedDeltaEvaluator
 from ..graph.streams import fifo_rounds_dag
 from ..obs import DriftMonitor, QualityAuditor
+from ..slice import KernelSlicer, greedy_order_slices, join_item
 from .cache import ScheduleCache
 
 __all__ = ["Composer", "GatedGuard"]
@@ -250,19 +252,52 @@ class Composer:
 
     def dag_cold(self, triples, traced, frontier=None) -> list[list]:
         """Cold composition of a traced step: the ready-set greedy
-        (:func:`repro_torch.graph.greedy_order_dag`), plus the
+        (:func:`repro_torch.graph.greedy_order_dag`) — slice-aware
+        (:func:`repro_torch.slice.greedy_order_slices`) when
+        ``policy.slice_policy`` is set, with the chain tail's exact
+        execution moved to the slice join — plus the
         precedence-respecting local search for ``kind="refined"``.
         ``frontier`` threads a
-        :class:`repro_torch.graph.constrained.GreedyFrontier` sink
-        through to the greedy.  The reference's slice-aware branch
-        (``policy.slice_policy``) comes with the slicing slice."""
+        :class:`repro_torch.graph.constrained.GreedyFrontier` sink through
+        to the greedy (the live-composition seed)."""
         profs = traced.graph.kernels
         eids = traced.graph.edges_by_id()
         by_name = {p.name: trip for p, trip in zip(profs, triples)}
         dem = lambda k: k.demands  # noqa: E731 — profiles, not items
-        sched = greedy_order_dag(profs, self.device,
-                                 edges=traced.graph.edges,
-                                 frontier=frontier)
+        sp = self.policy.slice_policy
+        if sp is None:
+            sched = greedy_order_dag(profs, self.device,
+                                     edges=traced.graph.edges,
+                                     frontier=frontier)
+            names, sl_eids = by_name, eids
+        else:
+            slicer = KernelSlicer(sp, self.device)
+            extra: dict[str, tuple] = {}
+
+            def mk_slices(prof, k):
+                it, r, kind = by_name[prof.name]
+                parts = slicer.slice_item(it, k)
+                for part in parts:
+                    extra[part.name] = (part, r, "frag")
+                ji = join_item(it)
+                # The chain tail's exact execution moves to the join:
+                # it still runs exactly once, after every slice.
+                extra[ji.name] = (ji, r, kind)
+                return [part.profile() for part in parts]
+
+            def mk_join(prof):
+                return extra[prof.name.split("#", 1)[0] + "#join"][0] \
+                    .profile()
+
+            sl = greedy_order_slices(profs, self.device,
+                                     edges=traced.graph.edges,
+                                     policy=sp, make_slices=mk_slices,
+                                     make_join=mk_join,
+                                     frontier=frontier)
+            sched = sl.schedule
+            names = dict(by_name)
+            names.update(extra)
+            sl_eids = sl.edges_by_id()
         if self.policy.kind == "refined":
             model = (self.policy.refine_model
                      if self.policy.refine_model in ("round", "event",
@@ -270,7 +305,7 @@ class Composer:
                      else "round")
             with self.cache.metrics.timer("phase_refine"):
                 order, _, _ = refine_order_dag(
-                    sched.order, self.device, edge_ids=eids,
+                    sched.order, self.device, edge_ids=sl_eids,
                     model=model,
                     budget=self.policy.refine_budget,
                     neighborhood=self.policy.neighborhood,
@@ -278,11 +313,11 @@ class Composer:
                                 if self.policy.refine_backend == "batched"
                                 else None),
                     metrics=self.cache.metrics)
-            prof_rounds = fifo_rounds_dag(order, self.device, eids,
+            prof_rounds = fifo_rounds_dag(order, self.device, sl_eids,
                                           demands_of=dem)
         else:
             prof_rounds = [rd.kernels for rd in sched.rounds]
-        return [[by_name[p.name] for p in rd] for rd in prof_rounds]
+        return [[names[p.name] for p in rd] for rd in prof_rounds]
 
     def compose_dag(self, triples, traced) -> list[list]:
         """Round composition over the per-layer dependency graph.
@@ -408,11 +443,13 @@ class Composer:
     def dag_apply_pattern(self, pattern, triples, labels):
         """Replay a cached DAG pattern onto the current step.
 
-        Whole-stage labels map straight onto the current traced items.
-        Labels carrying slice tags (the reference re-cuts the stage
-        with the cached slice count) need the slicing slice: such a
-        pattern, like any other mismatch — a label the current step
-        lacks — returns None and the engine recomposes cold."""
+        Whole-stage labels map straight onto the current traced items;
+        labels carrying slice tags re-cut the current stage with the
+        cached slice count (exact accounting on *current* demands —
+        the replayed modelled time is honest, which is what the drift
+        re-validation inspects).  Any mismatch — a label the current
+        step lacks, a slice count the stage can no longer support —
+        returns None and the engine recomposes cold."""
         by_label = {}
         for trip in triples:
             by_label[labels[trip[0].name]] = trip
@@ -429,8 +466,23 @@ class Composer:
                     need[tuple(parent)] = k
                 elif sub not in ("", "join"):
                     return None
+        sp = self.policy.slice_policy
+        expanded: dict[tuple, tuple] = {}
         if need:
-            return None
+            if sp is None:
+                return None
+            slicer = KernelSlicer(sp, self.device)
+            for parent, k in need.items():
+                trip = by_label.get(parent)
+                if trip is None:
+                    return None
+                it, r, kind = trip
+                parts = slicer.slice_item(it, k)
+                if len(parts) != k:
+                    return None  # stage can no longer support the cut
+                for j, part in enumerate(parts):
+                    expanded[parent + (f"s{j}of{k}",)] = (part, r, "frag")
+                expanded[parent + ("join",)] = (join_item(it), r, kind)
         out = []
         used = set()
         for rd in pattern:
@@ -440,7 +492,8 @@ class Composer:
                     return None
                 used.add(lab)
                 *parent, sub = lab
-                trip = None if sub else by_label.get(tuple(parent))
+                trip = (expanded.get(lab) if sub
+                        else by_label.get(tuple(parent)))
                 if trip is None:
                     return None
                 row.append(trip)

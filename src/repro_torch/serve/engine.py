@@ -1,6 +1,5 @@
 """Serving engine with symbiotic round scheduling (the port of the
-reference's ``repro.serve.engine``: the flat path and the unsliced
-dependency-aware path).
+reference's ``repro.serve.engine``).
 
 Every unit of pending work is characterised as a roofline work item —
 a **prefill chunk** (compute-bound) or a **decode step**
@@ -22,8 +21,12 @@ of layer-stage work items (:func:`build_dag_triples`), composed by the
 ready-set greedy over the per-layer dependency graph; interior stages
 only shape the modelled rounds, and a request still executes exactly
 once per step, at its chain's tail.  Kernel slicing
-(``slice_policy``) and the live composition
-(``composition="incremental"``) come with a later slice and raise.
+(``slice_policy``, :mod:`repro_torch.slice`) cuts stages that would
+round alone into co-schedulable slices, and moves the tail's exact
+execution to the slice join; ``composition="incremental"`` keeps the
+ready-set greedy's frontier live across steps
+(:class:`~repro_torch.serve.live.LiveComposition`).  Neither changes a
+served token.
 """
 
 from __future__ import annotations
@@ -42,6 +45,7 @@ from ..models.common import ModelConfig
 from ..obs import LatencyTracker, MetricsRegistry, phase_breakdown
 from .cache import ScheduleCache
 from .composer import Composer
+from .live import LiveComposition
 
 __all__ = ["Request", "ServingEngine", "SchedulerPolicy",
            "build_dag_triples"]
@@ -75,9 +79,15 @@ class SchedulerPolicy:
     #: the multiset of per-request chain signatures (kind, kv bucket,
     #: stage count): ``dag_hits`` in ``ScheduleCache.stats()``.
     respect_deps: bool = False
-    #: Kernel slicing on the respect_deps path (the reference's
-    #: ``repro.slice.SlicePolicy``): not ported yet, so anything but
-    #: None raises.
+    #: Kernelet-style slicing (repro_torch.slice) on the respect_deps
+    #: path: when set, a stage the ready-set greedy cannot pack with
+    #: any frontier peer (a solo round) is cut per this
+    #: :class:`repro_torch.slice.SlicePolicy` into co-schedulable slices
+    #: with exact accounting — slice profiles sum to the parent and the
+    #: stage weight stream is still charged once per round.  Default
+    #: off.  Slicing only reshapes modelled rounds; chain tails still
+    #: trigger exact execution (moved to the slice join), so generated
+    #: tokens are identical with or without it.
     slice_policy: object | None = None
     #: Optional stage coarsening for deep configs on the respect_deps
     #: path (see trace_arch(max_stages=...)); None = one item per
@@ -113,7 +123,11 @@ class SchedulerPolicy:
     #: recorded when the pattern was stored — or whose rounds no
     #: longer fit device capacity on actual demands — is not replayed;
     #: the engine recomposes cold (``replay_revalidations``).  <= 0
-    #: disables (optimistic replay).
+    #: disables (optimistic replay).  ``composition="incremental"``
+    #: reuses the same knob as its drift backstop: the live
+    #: composition's modelled ratio against dep-aware arrival order may
+    #: drift at most this fraction from the ratio at the last cold
+    #: (re)build.
     replay_drift_tol: float = 0.05
     #: Warm-start quality tracking: audit this fraction of warm hits by
     #: also recomputing the cold greedy composition and recording the
@@ -140,9 +154,18 @@ class SchedulerPolicy:
     #: ``refine_backend="batched"``.
     refine_batch: int = 128
     #: How the respect_deps path composes across steps: "batch"
-    #: recomposes every step (through the ScheduleCache);
-    #: "incremental" (the reference's live frontier,
-    #: ``repro.serve.live``) is not ported yet and raises.
+    #: recomposes every step from scratch (optionally through the
+    #: ScheduleCache); "incremental" keeps the ready-set greedy's
+    #: round-frontier state live across steps
+    #: (:class:`repro_torch.serve.live.LiveComposition`) — joining
+    #: requests' chains are placed by Algorithm 1's own scoring into
+    #: the existing composition, leaving requests' stages are retired
+    #: in place, and everything else refreshes without moving.
+    #: Counters in ``ScheduleCache.stats()``: ``incremental_joins``,
+    #: ``incremental_leaves``, ``frontier_rebuilds``.  Tokens are
+    #: identical either way (execution is exact per request); only
+    #: per-step compose cost and modelled round times differ.  No
+    #: effect on the flat (``respect_deps=False``) path.
     composition: str = "batch"
 
 
@@ -198,15 +221,6 @@ class ServingEngine:
         self.params = params
         self.max_len = max_len
         self.policy = policy or SchedulerPolicy()
-        if self.policy.slice_policy is not None:
-            raise NotImplementedError(
-                "slice_policy needs repro.slice, which is not ported yet "
-                "(ROADMAP: 'Kernel slicing and the live composition')")
-        if self.policy.composition == "incremental":
-            raise NotImplementedError(
-                "composition='incremental' needs serve.live, which is not "
-                "ported yet (ROADMAP: 'Kernel slicing and the live "
-                "composition')")
         self.n_params = n_params or float(T.count_params(params))
         #: the scheduler's device model (the v5e round cost model); the
         #: tensors run on :attr:`exec_device`
@@ -239,6 +253,9 @@ class ServingEngine:
                                  self.weights_bytes,
                                  self.schedule_cache,
                                  recorder=recorder)
+        self.live = (LiveComposition(self.composer)
+                     if self.policy.composition == "incremental"
+                     else None)
         #: per-request arrival→completion latency spans
         self.latency = LatencyTracker(self.metrics)
         self._completed_rids: set[int] = set()
@@ -283,6 +300,22 @@ class ServingEngine:
             kv_bytes_per_token=self._kv_bytes_per_token(),
             max_stages=self.policy.dag_max_stages)
 
+    # -- composition (delegated; the reference's private surface) -------
+    def _compose(self, items) -> list[list]:
+        return self.composer.compose(items)
+
+    def _compose_dag(self, triples, traced) -> list[list]:
+        return self.composer.compose_dag(triples, traced)
+
+    def _dag_gated_time(self, rounds, traced) -> float:
+        return self.composer.dag_gated_time(rounds, traced)
+
+    def _dag_key_and_labels(self, triples, traced):
+        return self.composer.dag_key_and_labels(triples, traced)
+
+    def _dag_round_time(self, rd) -> float:
+        return self.composer.dag_round_time(rd)
+
     # -- execution -------------------------------------------------------
     def submit(self, reqs: list[Request]) -> None:
         self.queue.extend(reqs)
@@ -320,7 +353,9 @@ class ServingEngine:
         On the ``respect_deps`` path a round may contain interior chain
         stages (kind ``"frag"``): they contribute to the round's
         modelled time but trigger no execution — the request's exact
-        forward pass runs once, at its chain's tail item.
+        forward pass runs once, at its chain's tail item.  With
+        ``composition="incremental"`` the traced step composes through
+        the live frontier instead of the batch pipeline.
 
         The composition pipeline is timed under the ``phase_compose``
         histogram and the execution loop under ``phase_execute``;
@@ -337,13 +372,16 @@ class ServingEngine:
                 triples, traced = self._work_items_dag()
                 if not triples:
                     return 0
-                rounds = self.composer.compose_dag(triples, traced)
-                time_of = self.composer.dag_round_time
+                if self.live is not None:
+                    rounds = self.live.compose_dag(triples, traced)
+                else:
+                    rounds = self._compose_dag(triples, traced)
+                time_of = self._dag_round_time
             else:
                 items = self._work_items()
                 if not items:
                     return 0
-                rounds = self.composer.compose(items)
+                rounds = self._compose(items)
                 time_of = self.composer.flat_round_time
         aud = self.composer.auditor
         if aud.sample_step():

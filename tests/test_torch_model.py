@@ -58,8 +58,8 @@ def test_config_field_equal(arch, variant):
 
 
 #: The reference's ``repro.models`` names the port does not export yet:
-#: ``model_flops`` comes with the roofline slice.
-_UNPORTED_MODEL_NAMES = {"model_flops"}
+#: none.
+_UNPORTED_MODEL_NAMES: set[str] = set()
 
 
 def test_models_package_exports_reference_names():
@@ -266,3 +266,99 @@ def test_sliding_window_ring_buffer_matches_reference(monkeypatch):
     ref, port, _, pcache = _decode_both(cfg_ref, cfg_port, _prompt(14), 32)
     assert pcache["layers"][0]["k"].shape[1] == 8
     np.testing.assert_allclose(port, ref, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------------------------
+# The reference's call signatures (ROADMAP §3, F1-F4)
+# --------------------------------------------------------------------------
+
+def _qwen_f32_params():
+    cfg_ref = ref_configs.get_config("qwen1.5-0.5b", "smoke").replace(
+        dtype="float32")
+    cfg = pt_configs.get_config("qwen1.5-0.5b", "smoke").replace(
+        dtype="float32")
+    params = RT.init(jax.random.PRNGKey(0), cfg_ref)
+    port = interop.params_from_numpy(jax.tree.map(np.asarray, params), cfg,
+                                     device="cpu")
+    return cfg_ref, cfg, params, port
+
+
+def test_decode_step_accepts_unroll(monkeypatch):
+    """F1: ``decode_step(..., unroll=True)``, as the reference's property
+    tests, dry run and roofline correction call it, runs on the port and
+    changes nothing: the same logits as without it, within 1e-4 of the
+    reference's unrolled step."""
+    monkeypatch.setattr(ref_attention, "decode_sdpa", kernel_decode_sdpa)
+    cfg_ref, cfg, params, port = _qwen_f32_params()
+    tok = _prompt(1, cfg.vocab)
+    ref, _ = RT.decode_step(params, cfg_ref, jnp.asarray(tok, jnp.int32),
+                            RT.init_cache(cfg_ref, 1, 16), 0, unroll=True)
+    out = {}
+    for unroll in (True, False):
+        with torch.inference_mode():
+            out[unroll], _ = PT.decode_step(
+                port, cfg, torch.from_numpy(tok).long(),
+                PT.init_cache(cfg, 1, 16, device="cpu"), 0, unroll=unroll)
+    assert torch.equal(out[True], out[False])
+    np.testing.assert_allclose(out[True].numpy(), np.asarray(ref),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_prefill_accepts_impl(monkeypatch):
+    """F2: ``prefill(..., impl="xla")`` runs on the port, is ignored as
+    the reference ignores it, and gives the reference's greedy token."""
+    monkeypatch.setattr(ref_attention, "decode_sdpa", kernel_decode_sdpa)
+    cfg_ref, cfg, params, port = _qwen_f32_params()
+    prompt = _prompt(9, cfg.vocab)[None, :]
+    ref, _ = RT.prefill(params, cfg_ref, jnp.asarray(prompt, jnp.int32), 16,
+                        impl="xla")
+    tb = torch.from_numpy(prompt).long()
+    with torch.inference_mode():
+        got, cache = PT.prefill(port, cfg, tb, 16, impl="xla")
+        plain, _ = PT.prefill(port, cfg, tb, 16)
+    assert torch.equal(got, plain)
+    assert got.shape == ref.shape
+    assert (got.argmax(-1).numpy() == np.asarray(ref).argmax(-1)).all()
+    assert cache["layers"][0]["k"].shape[1] == 16
+
+
+def test_mamba_fwd_accepts_chunk():
+    """F3: ``Mamba.fwd(p, cfg, x, chunk=64)``, the reference's call, runs
+    on the port and changes nothing (chunking shapes only the
+    reference's backward memory); within 1e-4 of the reference's."""
+    from repro.models.common import ModelConfig as RConfig
+    from repro.models.ssm import Mamba as RMamba
+
+    from repro_torch.models.common import ModelConfig as PConfig
+    from repro_torch.models.ssm import Mamba as PMamba
+    kw = dict(name="m", n_layers=2, d_model=32, n_heads=4, n_kv_heads=4,
+              head_dim=8, d_ff=64, vocab=64, block_pattern=("mamba",),
+              mamba_d_state=8, dtype="float32")
+    cfg_ref, cfg = RConfig(**kw), PConfig(**kw)
+    p = RMamba.init(jax.random.PRNGKey(0), cfg_ref)
+    x = np.random.default_rng(1).standard_normal((2, 45, 32)).astype(
+        np.float32)
+    ref = RMamba.fwd(p, cfg_ref, jnp.asarray(x), chunk=64)
+    pp = interop._convert(jax.tree.map(np.asarray, p), torch.float32, "cpu")
+    got = PMamba.fwd(pp, cfg, torch.from_numpy(x), chunk=64)
+    assert torch.equal(got, PMamba.fwd(pp, cfg, torch.from_numpy(x)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "mixtral-8x7b",
+                                  "deepseek-v2-236b"])
+def test_model_flops_matches_reference(arch):
+    """F4: ``model_flops`` (6 · N_active · tokens) is exported by the
+    port's ``models`` and equals the reference's on the smoke configs'
+    parameter counts."""
+    from repro.models import model_flops as ref_model_flops
+
+    from repro_torch.models import model_flops
+    cfg_ref = ref_configs.get_config(arch, "smoke")
+    cfg = pt_configs.get_config(arch, "smoke")
+    n = PT.count_params(PT.init(cfg, device="cpu"))
+    for tokens in (1, 4096, 32 * 2048):
+        assert model_flops(cfg, n, tokens) == ref_model_flops(cfg_ref, n,
+                                                              tokens)
+    assert model_flops is PT.model_flops

@@ -217,16 +217,27 @@ def test_refined_engine_matches_reference(smoke_f32, monkeypatch,
 
 
 def test_unported_policies_raise(smoke_f32):
-    """Kernel slicing and the live composition are not ported yet; the
-    dependency-aware path itself runs (tests/test_torch_graph.py)."""
+    """Kernel slicing and the live composition, once refused at
+    construction, now construct and serve: the same tokens as the flat
+    path (their parity with the reference is in
+    tests/test_torch_slice.py and tests/test_torch_live.py)."""
+    from repro_torch.slice import SlicePolicy
     _, _, cfg, port = smoke_f32
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, port, policy=SchedulerPolicy(
-            respect_deps=True, slice_policy=object()))
-    with pytest.raises(NotImplementedError):
-        ServingEngine(cfg, port, policy=SchedulerPolicy(
-            respect_deps=True, composition="incremental"))
-    ServingEngine(cfg, port, policy=SchedulerPolicy(respect_deps=True))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab, size=4 + 3 * i) for i in range(3)]
+    outs = []
+    for kw in ({}, dict(respect_deps=True, slice_policy=SlicePolicy()),
+               dict(respect_deps=True, composition="incremental"),
+               dict(respect_deps=True, slice_policy=SlicePolicy(),
+                    composition="incremental")):
+        eng = ServingEngine(cfg, port, max_len=32,
+                            policy=SchedulerPolicy(**kw))
+        assert (eng.live is not None) == ("composition" in kw)
+        eng.submit([Request(i, p, max_new_tokens=3)
+                    for i, p in enumerate(prompts)])
+        outs.append(eng.run()["outputs"])
+    assert all(o == outs[0] for o in outs)
+    assert all(len(t) == 3 for t in outs[0].values())
 
 
 def test_serve_on_cpu_when_asked():
