@@ -15,9 +15,10 @@ no phase catches its own failure:
 3. kernels  — each kernel against its plain PyTorch version on the card,
               within f32 2e-5 / bf16 2e-2 (the reference's
               ``tests/test_kernels.py``): RMSNorm at the serving path's
-              row and the forward's 32,768 rows, and at deepseek-v2's
-              widths 512, 1536 and 5120 over 4,096 rows (twice, for the
-              same bits), decode attention at the
+              row and the forward's 32,768 rows, at xlstm-125m's width
+              768 over 1, 8 and 4,096 rows (bf16 and f32), and at
+              deepseek-v2's widths 512, 1536 and 5120 over 4,096 rows
+              (twice, for the same bits), decode attention at the
               serving path's shapes and a GQA shape, at qwen's heads on a
               32,768-slot cache at seven lengths around tile and cluster
               boundaries, at jamba's (B 8, T 4096, 32 heads over 8, D 128)
@@ -47,7 +48,13 @@ no phase catches its own failure:
               the prefill passes, each called twice for the same bits,
               within the doubled tolerances of the reference's
               ``test_mamba_scan`` (f32 4e-5, bf16 4e-2); the f32 pair scores on the card against
-              their NumPy path within ``F32_SCORE_RTOL``;
+              their NumPy path within ``F32_SCORE_RTOL``; RMSNorm under
+              autograd (the kernel forward and the plain f32 backward of
+              its ``autograd.Function``) at the training paths' 8,192 x
+              1024 (qwen) and 4,096 x 768 (xlstm-125m) in bf16 and f32,
+              output, dx and dscale against
+              the plain version's autograd; flash attention, decode
+              attention and the selective scan raise under grad;
 4. times    — CUDA-event times at the paths' shapes: kernel, plain
               version, one library call computing the same function
               (yardstick only; the port never calls it), and the bound;
@@ -89,14 +96,17 @@ no phase catches its own failure:
               decode replay of a 64-token prompt (kernel 3 against
               kernel 2); ``forward`` of hubert-xlarge at full width
               (48 flash launches, finite);
-9. card/CPU — the qwen, jamba, mixtral and deepseek smoke configs in
-              f32 on the card and on the CPU (plain versions) from the
+9. card/CPU — the qwen, jamba, mixtral, deepseek and xlstm smoke configs
+              in f32 on the card and on the CPU (plain versions) from the
               same seeded weights, TF32 off: served tokens identical and
               replayed logits within 1e-3 (deepseek's in an f32 cache,
               and within 1e-2 in its bf16 one), and ``prefill_logits``
               within 1e-3; the ``respect_deps`` engine on qwen, mixtral
               and deepseek: tokens identical on both devices and equal
-              to the flat path's, rounds and modelled time equal;
+              to the flat path's, rounds and modelled time equal; 5
+              train steps of qwen and xlstm smoke on both devices from
+              the same f32 master weights and batches, the losses within
+              1e-4 relative;
 10. design space — the paper's Fig. 1 / Table 3 protocol: for each of
               the six experiments on the GTX580 model, every launch order
               (720, or 40,320 for EpBsEsSw-8) plus Algorithm 1's and the
@@ -168,7 +178,36 @@ no phase catches its own failure:
               ``ScheduleTrace`` to Chrome trace JSON, every registry's
               counters and gauges through ``prometheus_text`` and
               ``parse_prometheus_text``, the ``FlightRecorder``'s events
-              through JSONL.
+              through JSONL;
+20. xlstm   — xlstm-125m at full width (12 layers: 6 sLSTM, 6 mLSTM; d
+              768; bf16, weights drawn on the card from seed 0, nothing
+              cut): §5's requests through ``ServingEngine``, every
+              request finished, exactly 13 RMSNorm launches (12 norm1
+              and the final norm) and no attention launch per
+              ``decode_step``, ms per step beside the weight-read floor;
+              ``prefill_logits`` at B 1 x S 2048 and B 8 x S 512, 13
+              RMSNorm launches a call, ms per call, peak memory; in f32
+              (TF32 off) the forward's logits on a 64-token prompt
+              within 1e-3 of a decode replay at every position, with the
+              same argmax (the chunkwise mLSTM against its recurrence);
+21. train   — ``repro_torch.launch.train.train`` on qwen1.5-0.5b at full
+              width (f32 master weights, bf16 compute, ``SyntheticLM``,
+              global batch 8 x seq 1024): a timed train step (ms,
+              tokens/s and peak memory beside 6 x N x tokens at 989
+              TFLOP/s; exactly 97 RMSNorm launches a step, 49 forward
+              and 48 recomputed under remat, and no other kernel; one
+              more step under the profiler, its top kernels); 20
+              steps straight with checkpoints every 10 (every loss
+              finite, the last 5's mean below the first 5's); the same
+              20-step run preempted after its step-10 checkpoint (its
+              ``log_fn`` raises at step 10) and resumed by a second call
+              on the same directory: it starts at step 10 with the data
+              pipeline's state and its losses are within 1e-2 of the
+              straight run's (room for sums whose order may change from
+              run to run); ``serve(..., ckpt_dir=...)`` from
+              the result, every request finished; xlstm-125m at full
+              width for 5 steps at B 8 x S 512, finite losses and
+              gradient norms, 25 RMSNorm launches a step.
 
 §4 also times flash attention and SDPA at qwen's B 1 x S 32768.  §9 also
 serves the three traced archs with ``respect_deps`` sliced and sliced
@@ -177,8 +216,8 @@ through the live composition (two requests arriving at iteration 2, a
 slice rounds, modelled time and cache counters identical.
 
 The kernels' record counts each kernel's launches on the main paths:
-the decode steps of §5, §16, §18 and §19 and the prefills of §7 and
-§18.
+the decode steps of §5, §16, §18, §19 and §20, the prefills of §7 and
+§18, and §21's 20 straight train steps.
 The last lines are the kernels' JSON record, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes a
 fuller JSON report (every timing repeat, the profiles' top kernels).
@@ -188,11 +227,15 @@ Exits 1 at once where ``torch.cuda.is_available()`` is false.
 from __future__ import annotations
 
 import argparse
+import gc
 import itertools
 import json
+import os
 import re
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -628,7 +671,12 @@ def main(argv=None) -> int:
                                      mamba_scan, mamba_scan_plain,
                                      reset_launch_counts, rmsnorm_rows,
                                      rmsnorm_rows_plain, scan_plan)
+    from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.serve import serve
+    from repro_torch.launch.train import train
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.train import (init_train_state, latest_step,
+                                   make_train_step)
     from repro_torch.models import transformer as T
     from repro_torch.models.moe import MoE
     from repro_torch.core.tpu import make_serving_device
@@ -700,6 +748,14 @@ def main(argv=None) -> int:
             x = randn(rows, 1024, dtype=dt)
             s = randn(1024, scale=0.1, shift=1.0)
             compare(f"rmsnorm ({rows}, 1024) {dt}", rmsnorm_rows(x, s),
+                    rmsnorm_rows_plain(x, s), dt, errs["rmsnorm"])
+    # xlstm-125m's width (§20, §21): 768 = 3 warps a block in bf16, at a
+    # decode step's 1 and 8 rows and a prefill's or train step's 4,096
+    for rows in (1, 8, 4096):
+        for dt in (torch.bfloat16, torch.float32):
+            x = randn(rows, 768, dtype=dt)
+            s = randn(768, scale=0.1, shift=1.0)
+            compare(f"rmsnorm ({rows}, 768) {dt}", rmsnorm_rows(x, s),
                     rmsnorm_rows_plain(x, s), dt, errs["rmsnorm"])
     # deepseek-v2's widths (§15): kv_norm 512, q_norm 1536, d_model 5120,
     # at a prefill's 4,096 rows, twice for the same bits
@@ -936,6 +992,55 @@ def main(argv=None) -> int:
         require(ok, f"pair scores {key}: the card disagrees with NumPy")
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
+    # F5: the RMSNorm kernel under autograd (the kernel forward, the plain
+    # f32 backward) against the plain version's autograd on the card, at
+    # the training paths' shapes: qwen's 8,192 rows x 1024 (§21) and
+    # xlstm-125m's 4,096 x 768 (§21); the kernels without a backward raise
+    # where autograd would record
+    print("[kernels] RMSNorm autograd.Function vs the plain version's "
+          "autograd")
+    grad_errs: list = []
+    for (rows, d), dt in itertools.product(((8192, 1024), (4096, 768)),
+                                           (torch.bfloat16, torch.float32)):
+        x = randn(rows, d, dtype=dt).requires_grad_()
+        s = randn(d, scale=0.1, shift=1.0).requires_grad_()
+        gy = randn(rows, d, dtype=dt)
+        y = rmsnorm_rows(x, s)
+        require(y.grad_fn is not None, "rmsnorm under grad: no grad_fn")
+        dx, ds = torch.autograd.grad(y, (x, s), gy)
+        xp, sp = x.detach().requires_grad_(), s.detach().requires_grad_()
+        yp = rmsnorm_rows_plain(xp, sp)
+        dxp, dsp = torch.autograd.grad(yp, (xp, sp), gy)
+        compare(f"rmsnorm fwd under grad ({rows}, {d}) {dt}", y.detach(),
+                yp.detach(), dt, grad_errs)
+        compare(f"rmsnorm dx ({rows}, {d}) {dt}", dx, dxp, dt,
+                grad_errs)
+        compare(f"rmsnorm dscale ({d},) from {dt} rows", ds, dsp, dt,
+                grad_errs)
+    report["rmsnorm_autograd_max_abs_err"] = max(grad_errs)
+    del x, s, gy, y, dx, ds, xp, sp, yp, dxp, dsp
+    with torch.enable_grad():
+        q = randn(1, 64, 4, 64, dtype=torch.bfloat16).requires_grad_()
+        kv = randn(1, 64, 4, 64, dtype=torch.bfloat16)
+        qd = randn(1, 4, 64, dtype=torch.bfloat16).requires_grad_()
+        lens = torch.full((1,), 64, dtype=torch.int32, device=dev)
+        sx, sdt, sbm, scm, sa, sd = scan_inputs(randn, 1, 16, 64, 16,
+                                                torch.float32)
+        for label, call in (
+                ("flash_attention", lambda: flash_attention(q, kv, kv)),
+                ("decode_attention",
+                 lambda: decode_attention(qd, kv, kv, lens)),
+                ("mamba_scan", lambda: mamba_scan(
+                    sx.requires_grad_(), sdt, sbm, scm, sa, sd))):
+            try:
+                call()
+            except RuntimeError as e:
+                require("no backward" in str(e), f"{label}: {e}")
+                print(f"  {label} under grad raises: ok")
+            else:
+                raise SmokeFailure(f"{label} under grad returned a tensor "
+                                   "without its graph")
+    torch.cuda.synchronize()
 
     # 4. times at the paths' shapes -----------------------------------------
     print("[times] CUDA events: median of 5 repeats of n back-to-back calls "
@@ -1559,9 +1664,9 @@ def main(argv=None) -> int:
                                "dag_guard": "gated",
                                "composition": "incremental"}}
     for arch in ("qwen1.5-0.5b", "jamba-v0.1-52b", "mixtral-8x7b",
-                 "deepseek-v2-236b"):
+                 "deepseek-v2-236b", "xlstm-125m"):
         cfg = get_config(arch, "smoke").replace(dtype="float32")
-        deps = arch != "jamba-v0.1-52b"
+        deps = arch in ("qwen1.5-0.5b", "mixtral-8x7b", "deepseek-v2-236b")
         mla = cfg.attn_type == "mla"
         side = {}
         for where in ("cuda", "cpu"):
@@ -1681,6 +1786,36 @@ def main(argv=None) -> int:
                     "stage was sliced")
         report["card_vs_cpu"][arch] = rec
         del side, params, eng
+
+    # 5 train steps of qwen and xlstm smoke on both devices from the same
+    # seeded f32 master weights and batches (the launcher's schedule for
+    # 5 steps): on the card the norms go through the RMSNorm kernel's
+    # autograd.Function
+    for arch in ("qwen1.5-0.5b", "xlstm-125m"):
+        cfg = get_config(arch, "smoke").replace(dtype="float32")
+        opt = AdamWConfig(warmup_steps=5, total_steps=5)
+        losses = {}
+        for where in ("cuda", "cpu"):
+            params, opt_state = init_train_state(cfg, seed=0, device=where)
+            step = make_train_step(cfg, opt)
+            data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=64,
+                                          global_batch=4))
+            losses[where] = []
+            for _ in range(5):
+                params, opt_state, m = step(params, opt_state,
+                                            data.next_batch())
+                losses[where].append(float(m["loss"]))
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["cuda"], losses["cpu"]))
+        print(f"[card/cpu] {arch} smoke: 5 train steps, losses card "
+              f"{[round(v, 6) for v in losses['cuda']]}, max relative "
+              f"diff from the CPU's {rel:.3e} (bound 1e-4)")
+        require(all(np.isfinite(losses["cuda"])) and rel < 1e-4,
+                f"{arch}: card and CPU train losses differ by {rel}")
+        report["card_vs_cpu"][f"{arch}_train"] = {
+            "losses_card": losses["cuda"], "losses_cpu": losses["cpu"],
+            "max_rel_diff": rel}
+        del params, opt_state
 
     # 10. the design space of the six experiments ------------------------
     print("[design_space] the paper's Fig. 1 / Table 3 protocol on the "
@@ -2384,16 +2519,284 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
+    # 20. xlstm-125m at full width ------------------------------------------
+    # 12 layers, d 768, bf16, seeded weights drawn on the card, nothing cut:
+    # §5's requests through ServingEngine (13 RMSNorm launches a decode
+    # step: 12 norm1 and the final norm; no attention), prefill_logits at
+    # B 1 x S 2048 and B 8 x S 512, and in f32 the forward (the chunkwise
+    # mLSTM) against a decode replay (its recurrence) at every position
+    cfg_x = get_config("xlstm-125m", "full")
+    print("[xlstm] xlstm-125m full width (12 layers: 6 sLSTM, 6 mLSTM; "
+          "d 768), bf16, seed 0")
+    t20 = time.perf_counter()
+    params_x, n_x, _ = draw(cfg_x, "xlstm")
+    xl_rep: dict = {"params": n_x}
+    xl_rep["serve"], _ = serve_runs("serve-xlstm", params_x, cfg_x,
+                                    {"rmsnorm": 13})
+    xlstm_serve_counts = xl_rep["serve"]["launches"]
+    for B, S in ((1, 2048), (8, 512)):
+        toks = torch.randint(0, cfg_x.vocab, (B, S), generator=gen).to(dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        reset_launch_counts()
+        # one call a shape: the sLSTM recurrence is a host loop of S steps
+        # a layer, seconds a call, and nothing is compiled on the first
+        with torch.inference_mode():
+            t0 = time.perf_counter()
+            logits = T.prefill_logits(params_x, cfg_x, toks)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts = launch_counts()
+        require(counts == {k: 13 if k == "rmsnorm" else 0 for k in counts},
+                f"xlstm prefill B {B} x S {S}: launches {counts}; want 13 "
+                "RMSNorm a call")
+        require(tuple(logits.shape) == (B, cfg_x.vocab)
+                and bool(torch.isfinite(logits).all()),
+                f"xlstm prefill B {B} x S {S}: logits not finite")
+        b_ms, b_by = bound(2 * (n_x - cfg_x.vocab * cfg_x.d_model),
+                           prefill_ops(cfg_x, params_x, B, S),
+                           torch.bfloat16)
+        rep = {"B": B, "S": S, "wall_ms": wall * 1e3,
+               "prompt_tokens_per_s": B * S / wall,
+               "bound_ms_projections": b_ms, "bound_by": b_by,
+               "max_memory_allocated_bytes":
+                   torch.cuda.max_memory_allocated(),
+               "launches": counts}
+        xl_rep[f"prefill_B{B}_S{S}"] = rep
+        print(f"[xlstm] prefill_logits B {B} x S {S}: {rep['wall_ms']:.1f} "
+              f"ms (one call, synchronised) against a {b_ms:.3f} ms "
+              f"bound of its projections ({b_by}), "
+              f"{rep['prompt_tokens_per_s']:.0f} prompt tokens/s, peak "
+              f"memory {rep['max_memory_allocated_bytes']} bytes, logits "
+              f"finite; 13 RMSNorm launches a call")
+    del params_x, logits, toks
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg_x32 = cfg_x.replace(dtype="float32")
+    params_x32 = T.init(cfg_x32, seed=0, device=dev, draw_device="cuda")
+    prompt = torch.randint(0, cfg_x32.vocab, (1, 64), generator=gen).to(dev)
+    with torch.inference_mode():
+        full, _ = T.forward(params_x32, cfg_x32, prompt)
+        cache = T.init_cache(cfg_x32, 1, 64, dtype=torch.float32, device=dev)
+        rows = []
+        for pos in range(64):
+            lg, cache = T.decode_step(params_x32, cfg_x32, prompt[:, pos],
+                                      cache, pos)
+            rows.append(lg)
+    dec = torch.stack(rows, dim=1)
+    diff = (full - dec).abs().max().item()
+    same = bool((full.argmax(-1) == dec.argmax(-1)).all())
+    print(f"[xlstm] f32 (TF32 off), 64-token prompt: forward (chunkwise "
+          f"mLSTM) vs decode replay (its recurrence) max logit diff "
+          f"{diff:.3e} over 64 positions (bound 1e-3), same argmax at "
+          f"every position {same}")
+    require(diff < 1e-3 and same, "xlstm: forward and decode replay differ")
+    xl_rep["f32_forward_vs_replay_max_diff"] = diff
+    del params_x32, cache, full, dec
+    xl_rep["phase_s"] = time.perf_counter() - t20
+    report["xlstm"] = xl_rep
+    torch.cuda.empty_cache()
+
+    # 21. training at full width ---------------------------------------------
+    # repro_torch.launch.train.train on qwen1.5-0.5b (f32 master weights,
+    # bf16 compute, SyntheticLM, global batch 8 x seq 1024): a timed run of
+    # the train step, 20 steps straight with checkpoints every 10, the
+    # same 20-step run preempted after its step-10 checkpoint and resumed
+    # by a second call on the same directory, and serve() from the result;
+    # then xlstm-125m at full width for 5 steps at B 8 x S 512
+    t21 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg_t = get_config("qwen1.5-0.5b", "full")
+    L = cfg_t.n_layers
+    # RMSNorm launches a step: the forward's 2 a layer and the final norm,
+    # and the layers' 2 again when each layer is recomputed (remat)
+    per_step = (2 * L + 1) + 2 * L
+    tr_rep: dict = {"rmsnorm_per_step_want": per_step}
+    print(f"[train] qwen1.5-0.5b full width, f32 master weights, bf16 "
+          f"compute, SyntheticLM batch 8 x seq 1024; {per_step} RMSNorm "
+          f"launches a step want ({2 * L + 1} forward + {2 * L} recomputed)")
+    params_t, opt_t = init_train_state(cfg_t, seed=0, device=dev)
+    n_t = T.count_params(params_t)
+    step_t = make_train_step(cfg_t, AdamWConfig(warmup_steps=5,
+                                                total_steps=20))
+    data_t = SyntheticLM(DataConfig(vocab=cfg_t.vocab, seq_len=1024,
+                                    global_batch=8))
+    batches = [data_t.next_batch() for _ in range(5)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for b in batches[:1]:
+        params_t, opt_t, m = step_t(params_t, opt_t, b)
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    timed_losses = []
+    for b in batches[1:4]:
+        params_t, opt_t, m = step_t(params_t, opt_t, b)
+        timed_losses.append(m["loss"])
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    counts = launch_counts()
+    require(counts == {k: per_step * 3 if k == "rmsnorm" else 0
+                       for k in counts},
+            f"train step: launches {counts} over 3 steps; want {per_step} "
+            "RMSNorm a step and no other kernel")
+    require(all(bool(torch.isfinite(v)) for v in timed_losses),
+            "train step: a non-finite loss")
+    tokens = 8 * 1024
+    bound_ms_t = T.model_flops(cfg_t, n_t, tokens) / PEAK_OPS[
+        torch.bfloat16] * 1e3
+    tr_rep.update(params=n_t, ms_per_step=step_s * 1e3,
+                  tokens_per_s=tokens / step_s, bound_ms=bound_ms_t,
+                  max_memory_allocated_bytes=torch.cuda.max_memory_allocated(),
+                  launches_3_steps=counts)
+    print(f"[train] {n_t} parameters; {step_s * 1e3:.1f} ms per step (3 "
+          f"steps after 1 warm, synchronised), {tokens / step_s:.0f} "
+          f"tokens/s, against a {bound_ms_t:.2f} ms bound (6 x N x tokens "
+          f"at 989 TFLOP/s); peak memory "
+          f"{tr_rep['max_memory_allocated_bytes']} bytes; launches "
+          f"{counts} over 3 steps")
+    # one more step under the profiler: where the step's device time goes
+    rows, _, _ = profiled(lambda: step_t(params_t, opt_t, batches[4]))
+    busy_ms = sum(r[1] for r in rows) / 1e3
+    tr_rep["profile"] = {"device_busy_ms": busy_ms,
+                         "kernels_and_copies": sum(r[2] for r in rows),
+                         "top": [{"name": n[:80], "device_us": t, "calls": c}
+                                 for n, t, c in rows[:12]]}
+    print(f"[train] profiled step: device busy {busy_ms:.1f} ms in "
+          f"{tr_rep['profile']['kernels_and_copies']} kernels and copies; "
+          "top:")
+    for r in tr_rep["profile"]["top"][:10]:
+        print(f"[train]   {r['device_us'] / 1e3:9.3f} ms x{r['calls']:<5d} "
+              f"{r['name']}")
+    del params_t, opt_t, m, timed_losses, rows
+    torch.cuda.empty_cache()
+
+    ck_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    try:
+        kw = dict(variant="full", steps=20, global_batch=8, seq_len=1024,
+                  ckpt_every=10)
+        reset_launch_counts()
+        straight = train("qwen1.5-0.5b", ckpt_dir=str(ck_root / "straight"),
+                         **kw)
+        train_counts = launch_counts()
+        losses = straight["losses"]
+        require(train_counts == {k: per_step * 20 if k == "rmsnorm" else 0
+                                 for k in train_counts},
+                f"train(): launches {train_counts} over 20 steps; want "
+                f"{per_step} RMSNorm a step")
+        first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
+        print(f"[train] train() 20 steps straight (checkpoints at 10 and "
+              f"20): losses {[round(v, 4) for v in losses]}; mean of the "
+              f"first 5 {first5:.4f}, of the last 5 {last5:.4f}; "
+              f"{straight['seconds']:.1f} s with checkpoint I/O; launches "
+              f"{train_counts}")
+        require(len(losses) == 20 and all(np.isfinite(losses))
+                and last5 < first5, "train(): the loss did not fall")
+        saved = sorted(x for x in os.listdir(ck_root / "straight")
+                       if x.startswith("step_"))
+        require(saved == ["step_00000010", "step_00000020"],
+                f"train(): checkpoints {saved}")
+        shutil.rmtree(ck_root / "straight")
+        torch.cuda.empty_cache()
+
+        class Preempted(Exception):
+            pass
+
+        def preempt(s, m):
+            if s == 10:       # after step 9's update and its checkpoint
+                raise Preempted
+
+        resume_dir = ck_root / "resume"
+        try:
+            train("qwen1.5-0.5b", ckpt_dir=str(resume_dir), log_fn=preempt,
+                  **kw)
+        except Preempted:
+            pass
+        else:
+            raise SmokeFailure("train(): the preempting log_fn never ran")
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        while latest_step(str(resume_dir)) != 10:   # the async write
+            require(time.perf_counter() - t0 < 300,
+                    "the step-10 checkpoint was not published")
+            time.sleep(0.5)
+        with open(resume_dir / "step_00000010" / "MANIFEST.json") as f:
+            extra = json.load(f)["extra"]
+        resumed = train("qwen1.5-0.5b", ckpt_dir=str(resume_dir), **kw)
+        rl = resumed["losses"]
+        rdiff = max(abs(a - b) for a, b in zip(rl, losses[10:]))
+        print(f"[train] preempted after the step-10 checkpoint (manifest "
+              f"extra {extra}); resumed train() ran {len(rl)} steps: "
+              f"losses {[round(v, 4) for v in rl]}, max abs diff from the "
+              f"straight run's steps 10-19 {rdiff:.3e} (bound 1e-2)")
+        require(extra == {"step": 10, "data": {"step": 10}}
+                and len(rl) == 10 and rdiff < 1e-2,
+                "the resumed run does not continue the straight one")
+        st = serve("qwen1.5-0.5b", variant="full", n_requests=4,
+                   max_new_tokens=8, ckpt_dir=str(resume_dir))
+        outs = st["outputs"]
+        require(len(outs) == 4 and all(len(t) == 8 for t in outs.values()),
+                f"serve from the checkpoint: not every request finished: "
+                f"{outs}")
+        print(f"[train] serve(ckpt_dir=...) from the step-20 checkpoint: 4 "
+              f"requests finished, {st['total_new_tokens']} tokens in "
+              f"{st['wall_s']:.2f} s; req 0: {outs[0]}")
+        tr_rep.update(straight_losses=losses, straight_s=straight["seconds"],
+                      train_launches=train_counts, resumed_losses=rl,
+                      resume_max_abs_diff=rdiff, resume_manifest_extra=extra,
+                      served_from_checkpoint=outs)
+    finally:
+        shutil.rmtree(ck_root, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    cfg_xt = get_config("xlstm-125m", "full")
+    params, opt_state = init_train_state(cfg_xt, seed=0, device=dev)
+    step_x = make_train_step(cfg_xt, AdamWConfig(warmup_steps=5,
+                                                 total_steps=5))
+    data_x = SyntheticLM(DataConfig(vocab=cfg_xt.vocab, seq_len=512,
+                                    global_batch=8))
+    x_losses, x_gnorms, x_s = [], [], []
+    reset_launch_counts()
+    for _ in range(5):
+        t0 = time.perf_counter()
+        params, opt_state, m = step_x(params, opt_state, data_x.next_batch())
+        x_losses.append(float(m["loss"]))
+        x_gnorms.append(float(m["grad_norm"]))
+        x_s.append(time.perf_counter() - t0)
+    counts = launch_counts()
+    require(all(np.isfinite(x_losses)) and all(np.isfinite(x_gnorms)),
+            f"xlstm train: losses {x_losses}, gradient norms {x_gnorms}")
+    require(counts == {k: 5 * (13 + 12) if k == "rmsnorm" else 0
+                       for k in counts},
+            f"xlstm train: launches {counts}; want 25 RMSNorm a step")
+    print(f"[train] xlstm-125m full, B 8 x S 512, 5 steps: losses "
+          f"{[round(v, 4) for v in x_losses]}, gradient norms (before "
+          f"clipping) {[round(v, 3) for v in x_gnorms]}, all finite; s per "
+          f"step {[round(v, 2) for v in x_s]}; launches {counts}")
+    tr_rep["xlstm"] = {"losses": x_losses, "grad_norms": x_gnorms,
+                       "s_per_step": x_s, "launches": counts}
+    del params, opt_state, m
+    tr_rep["phase_s"] = time.perf_counter() - t21
+    report["train"] = tr_rep
+    torch.cuda.empty_cache()
+    print(f"[train] §20 took {xl_rep['phase_s']:.1f} s, §21 "
+          f"{tr_rep['phase_s']:.1f} s")
+
     # record ----------------------------------------------------------------
     # launches on the main paths: qwen, deepseek and mixtral decode steps
-    # (§5, §16, §18), qwen and mixtral prefills (§7, §18), and the sliced,
-    # incremental front end's decode steps (§19)
+    # (§5, §16, §18), qwen and mixtral prefills (§7, §18), the sliced,
+    # incremental front end's decode steps (§19), xlstm's decode steps
+    # (§20) and qwen's train steps (§21)
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:26",
                            serve_counts["rmsnorm"]
                            + ds_serve_counts["rmsnorm"]
                            + mixtral_decode_counts["rmsnorm"]
-                           + live_counts["rmsnorm"]),
+                           + live_counts["rmsnorm"]
+                           + xlstm_serve_counts["rmsnorm"]
+                           + train_counts["rmsnorm"]),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:68",
                                     serve_counts["decode_attention"]

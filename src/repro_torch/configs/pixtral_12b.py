@@ -1,0 +1,19 @@
+"""Config for ``pixtral-12b`` (the port of the reference's
+``repro.configs.pixtral_12b``).
+
+Exact published hyper-parameters; see ``repro_torch.configs.archs`` for
+the source notes and the reduced smoke variant.
+"""
+
+from .archs import get_config
+
+
+def full():
+    return get_config("pixtral-12b", "full")
+
+
+def smoke():
+    return get_config("pixtral-12b", "smoke")
+
+
+config = full

@@ -23,11 +23,13 @@ from .models.common import ModelConfig
 __all__ = ["params_from_numpy"]
 
 #: path suffixes of the leaves that stay float32: norm scales and norm
-#: biases, the MoE router's weight (routing runs in f32) and Mamba's
-#: conv, dt bias, A and skip leaves; other leaves (dense ``w`` and ``b``,
-#: the experts) take the compute dtype
+#: biases, the MoE router's weight (routing runs in f32), Mamba's conv,
+#: dt bias, A and skip leaves, and xLSTM's ``ln_scale`` and sLSTM's
+#: recurrent ``r`` (the mixer's own key: no other leaf ends so); other
+#: leaves (dense ``w`` and ``b``, the experts) take the compute dtype
 _F32_PATHS = (("scale",), ("bias",), ("router", "w"), ("conv_w",),
-              ("conv_b",), ("dt_bias",), ("a_log",), ("d_skip",))
+              ("conv_b",), ("dt_bias",), ("a_log",), ("d_skip",),
+              ("ln_scale",), ("mixer", "r"))
 
 
 def _is_f32(path: tuple[str, ...]) -> bool:
@@ -58,7 +60,6 @@ def _convert(tree, dtype: torch.dtype, device, path: tuple[str, ...] = ()):
 def params_from_numpy(tree: dict, cfg: ModelConfig, *,
                       device="cuda") -> dict:
     """The reference's parameter tree (NumPy leaves) -> the port's."""
-    T.check_supported(cfg)
     dt = cfg.compute_dtype
     out = {k: _convert(v, dt, device, (k,)) for k, v in tree.items()
            if k not in ("prefix", "stack")}

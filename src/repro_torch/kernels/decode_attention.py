@@ -32,6 +32,7 @@ from typing import NamedTuple
 import torch
 
 from .build import library
+from .nograd import refuse_grad
 
 __all__ = ["DecodePlan", "decode_attention", "decode_attention_plain",
            "decode_plan"]
@@ -176,6 +177,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (B, H, D) in q's dtype.  Rows of length 0 give zeros on the card."""
     if q.device.type == "cpu":
         return decode_attention_plain(q, k, v, lengths)
+    refuse_grad("decode_attention", q, k, v)
     _check(q, k, v, lengths)
     out = torch.empty_like(q)
     B, H, D = q.shape

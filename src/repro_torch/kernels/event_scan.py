@@ -59,6 +59,7 @@ import numpy as np
 import torch
 
 from .build import library
+from .nograd import refuse_grad
 
 __all__ = ["F32_EVENT_RTOL", "F32_FIT_RTOL", "EventPlan", "EventScanConfig",
            "config_for_device", "cohort_slots", "event_plan", "event_times",
@@ -395,6 +396,7 @@ def event_times(rows: torch.Tensor, table, *,
         return event_times_plain(rows, table, max_events=max_events)
     if rows.device.type != "cuda":
         raise ValueError(f"event_times: no kernel for device {rows.device}")
+    refuse_grad("event_times", rows)
     if rows.device.index != torch.cuda.current_device():
         raise ValueError("event_times: rows are not on the current CUDA "
                          "device")

@@ -34,6 +34,7 @@ import torch
 import torch.nn.functional as F
 
 from .build import library
+from .nograd import refuse_grad
 
 __all__ = ["FlashPlan", "flash_attention", "flash_attention_plain",
            "flash_plan"]
@@ -144,6 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     and are cut from the output)."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal, window=window)
+    refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window)
     B, S, H, D = q.shape
     _, T, Hkv, _ = k.shape

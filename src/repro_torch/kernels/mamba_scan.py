@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from .build import library
+from .nograd import refuse_grad
 
 __all__ = ["ScanPlan", "mamba_scan", "mamba_scan_plain", "scan_plan"]
 
@@ -191,6 +192,7 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     and d_skip (Dc,) f32 -> y (B, T, Dc) in x's dtype."""
     if x.device.type == "cpu":
         return mamba_scan_plain(x, dt, bm, cm, a, d_skip)
+    refuse_grad("mamba_scan", x, dt, bm, cm, a, d_skip)
     _check(x, dt, bm, cm, a, d_skip)
     y = torch.empty_like(x)
     B, T, Dc = x.shape

@@ -13,6 +13,14 @@ the ``.cu`` file has the details.
 :func:`rmsnorm_rows_plain` only for tensors on the CPU; on a CUDA
 tensor it launches or raises.  ``rmsnorm_rows.launches`` counts the
 kernel's launches.
+
+Where autograd records (grad enabled and ``x`` or ``scale`` requiring
+grad), the CUDA path is a ``torch.autograd.Function``: its forward is
+the kernel, its backward :func:`rmsnorm_rows_backward`, plain PyTorch
+in f32 from the saved ``x`` and ``scale`` with the row scale
+recomputed.  The reference has no backward kernel (its training
+differentiates the XLA norm), so none is written here.  On the CPU the
+plain version is differentiated by autograd.
 """
 
 from __future__ import annotations
@@ -21,7 +29,7 @@ import torch
 
 from .build import library
 
-__all__ = ["rmsnorm_rows", "rmsnorm_rows_plain"]
+__all__ = ["rmsnorm_rows", "rmsnorm_rows_plain", "rmsnorm_rows_backward"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -32,6 +40,40 @@ def rmsnorm_rows_plain(x: torch.Tensor, scale: torch.Tensor, *,
     xf = x.float()
     ms = (xf * xf).mean(-1, keepdim=True)
     return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def rmsnorm_rows_backward(x: torch.Tensor, scale: torch.Tensor,
+                          gy: torch.Tensor, *, eps: float = 1e-6
+                          ) -> tuple[torch.Tensor, torch.Tensor]:
+    """The gradients of ``y = x·r·scale``, ``r = rsqrt(mean(x²)+eps)``,
+    for the output gradient ``gy`` (R, D), computed in f32: ``dx = r·u -
+    x·r³·mean(u·x)`` with ``u = gy·scale``, returned in x's dtype, and
+    ``dscale = Σ_rows gy·(x·r)`` in f32, its terms rounded as the plain
+    version's autograd rounds them (``x·r`` first): a column's sum runs
+    over every row and may cancel to near zero, where the order of the
+    roundings would show."""
+    xf, gf, sf = x.float(), gy.float(), scale.float()
+    r = torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+    u = gf * sf
+    dx = r * u - xf * r.pow(3) * (u * xf).mean(-1, keepdim=True)
+    return dx.to(x.dtype), (gf * (xf * r)).sum(0)
+
+
+class _RMSNormRows(torch.autograd.Function):
+    """The kernel forward with the plain f32 backward."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return _launch(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x, scale = ctx.saved_tensors
+        dx, dscale = rmsnorm_rows_backward(x, scale, gy, eps=ctx.eps)
+        return (dx if ctx.needs_input_grad[0] else None,
+                dscale if ctx.needs_input_grad[1] else None, None)
 
 
 def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
@@ -64,6 +106,12 @@ def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, *,
     """x: (R, D), scale: (D,) f32 -> (R, D) in x's dtype."""
     if x.device.type == "cpu":
         return rmsnorm_rows_plain(x, scale, eps=eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RMSNormRows.apply(x, scale, eps)
+    return _launch(x, scale, eps)
+
+
+def _launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     _check(x, scale)
     y = torch.empty_like(x)
     if x.shape[0] == 0:

@@ -1,10 +1,9 @@
 """Model layers and assembly: GQA and MLA attention (decode and the
-full-sequence forward), Mamba and MoE layers, and the transformer stack
-of every arch the port runs (dense GQA, jamba's hybrid, mixtral's MoE,
-deepseek-v2's MLA with its dense prefix).
+full-sequence forward), Mamba, MoE and xLSTM layers, and the transformer
+stack of all ten archs (dense GQA, jamba's hybrid, mixtral's MoE,
+deepseek-v2's MLA with its dense prefix, xlstm's mLSTM and sLSTM).
 
-The names match the reference's ``repro.models``; xLSTM configs raise in
-``transformer.check_supported``.
+The names match the reference's ``repro.models``.
 """
 
 from . import transformer

@@ -18,15 +18,16 @@ Entry points:
 * ``decode_step(params, cfg, tok, cache, pos)``    -> logits, cache
 
 A layer's mixer is attention (GQA, or MLA where ``cfg.attn_type ==
-"mla"``: deepseek-v2) or a Mamba block (jamba), and its feed-forward a
-dense MLP or an MoE layer (``cfg.is_moe_layer``), after a prefix of
-``cfg.first_dense_layers`` dense layers.  ``forward``,
+"mla"``: deepseek-v2), a Mamba block (jamba) or an mLSTM or sLSTM
+block (xlstm), and its feed-forward a dense MLP or an MoE layer
+(``cfg.is_moe_layer``), after a prefix of ``cfg.first_dense_layers``
+dense layers; xLSTM blocks have none.  ``forward``,
 ``forward_features`` and ``prefill_logits`` take ``impl``: ``"kernel"``
 (the default) attends through the flash-attention op and scans through
 the selective-scan op, ``"xla"`` runs the plain twins of the
-reference's XLA path instead; MLA has no kernel branch, as in the
-reference, and runs its plain twins either way.  xLSTM layers come with
-a later slice; those configs raise ``NotImplementedError``.
+reference's XLA path instead (the training path's: those kernels have
+no backward); MLA and the xLSTM blocks have no kernel branch, as in the
+reference, and run their plain code either way.
 """
 
 from __future__ import annotations
@@ -34,16 +35,19 @@ from __future__ import annotations
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..pytree import flatten
 from .attention import GQA, MLA
 from .common import (ModelConfig, act_fn, dense, init_norm, make_dense,
                      norm, normal, rope_tables)
 from .moe import MoE
 from .ssm import Mamba
+from .xlstm import MLSTM, SLSTM
 
 __all__ = ["init", "forward", "forward_features", "head_matrix",
            "prefill_logits", "prefill", "decode_step", "init_cache",
-           "unit_period", "count_params", "model_flops", "check_supported"]
+           "unit_period", "count_params", "model_flops"]
 
 
 # ---------------------------------------------------------------------------
@@ -55,9 +59,12 @@ def _attn_cls(cfg: ModelConfig):
 
 
 def _mixer(cfg: ModelConfig, i: int):
-    """Layer ``i``'s mixer class: the config's attention class or
-    Mamba."""
-    return _attn_cls(cfg) if cfg.layer_kind(i) == "attn" else Mamba
+    """Layer ``i``'s mixer class: the config's attention class, Mamba,
+    MLSTM or SLSTM."""
+    kind = cfg.layer_kind(i)
+    if kind == "attn":
+        return _attn_cls(cfg)
+    return {"mamba": Mamba, "mlstm": MLSTM, "slstm": SLSTM}[kind]
 
 
 def _has_ff(cfg: ModelConfig, i: int) -> bool:
@@ -79,15 +86,6 @@ def unit_period(cfg: ModelConfig) -> tuple[int, int]:
         if m % p == 0 and all(sigs[i] == sigs[i % p] for i in range(m)):
             return prefix, p
     return prefix, m
-
-
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise for configs outside the ported slices: xLSTM layers."""
-    for i in range(cfg.n_layers):
-        if cfg.layer_kind(i) not in ("attn", "mamba"):
-            raise NotImplementedError(
-                f"{cfg.name}: {cfg.layer_kind(i)} layers are not ported "
-                "yet (ROADMAP: 'xLSTM, and checks for the other archs')")
 
 
 def _init_mlp(gen, cfg: ModelConfig, dtype, device) -> dict:
@@ -133,10 +131,12 @@ def _apply_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor, cos,
     The reference's also returns a state slot, which it leaves empty."""
     aux = _zero_aux(x.device)
     h = norm(p["norm1"], x, cfg.norm)
-    if cfg.layer_kind(i) == "attn":
-        y = _attn_cls(cfg).fwd(p["mixer"], cfg, h, cos, sin, impl=impl)
-    else:
-        y = Mamba.fwd(p["mixer"], cfg, h, impl=impl)
+    kind = cfg.layer_kind(i)
+    # attention takes the rope tables; the kernel choice goes to the
+    # mixers that have a kernel (xLSTM has none)
+    args = (cos, sin) if kind == "attn" else ()
+    kw = {"impl": impl} if kind in ("attn", "mamba") else {}
+    y = _mixer(cfg, i).fwd(p["mixer"], cfg, h, *args, **kw)
     x = x + y
     if "norm2" in p:
         h = norm(p["norm2"], x, cfg.norm)
@@ -157,7 +157,7 @@ def _add_aux(a: dict, b: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
-         draw_device="cpu") -> dict:
+         draw_device="cpu", param_dtype: torch.dtype | None = None) -> dict:
     """Seeded random weights with the reference's shapes and scales.
 
     The draws come from a ``torch.Generator`` on ``draw_device``: the
@@ -166,12 +166,15 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     the reference's own weights with
     :func:`repro_torch.interop.params_from_numpy`); ``"cuda"`` draws a
     full-width model on the card in seconds, with other numbers.
-    Weights are stored in the compute dtype; norm parameters, the MoE
-    router and Mamba's ``a_log``, ``conv_*``, ``dt_bias`` and ``d_skip``
-    in float32, as the reference keeps them."""
-    check_supported(cfg)
+    Weights are stored in ``param_dtype``, by default the compute dtype
+    (serving's choice); norm parameters, the MoE router, Mamba's
+    ``a_log``, ``conv_*``, ``dt_bias`` and ``d_skip`` and xLSTM's
+    ``ln_scale`` and ``r`` in float32, as the reference keeps them.
+    Training passes ``param_dtype=torch.float32``: the reference's
+    parameters are all f32 (master weights), and its train step casts
+    them to bf16 for the matrix products."""
     gen = torch.Generator(device=draw_device).manual_seed(seed)
-    dt = cfg.compute_dtype
+    dt = param_dtype or cfg.compute_dtype
     kw = {"dtype": dt, "device": device}
     params: dict = {"final_norm": init_norm(cfg.d_model, cfg.norm, device)}
     if cfg.input_mode == "tokens":
@@ -213,20 +216,27 @@ def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
     return rope_tables(positions, dim, cfg.rope_theta)
 
 
-def _stack(params: dict, cfg: ModelConfig, batch,
-           impl: str) -> tuple[torch.Tensor, dict]:
+def _stack(params: dict, cfg: ModelConfig, batch, impl: str,
+           remat: bool) -> tuple[torch.Tensor, dict]:
     """Embedding and every layer: the hidden states before the final
     norm, and the aux terms summed over the layers in the reference's
     order (prefix layers one by one; then each unit's layers, and the
-    units' sums over the repetitions)."""
-    check_supported(cfg)
+    units' sums over the repetitions).  With ``remat`` and autograd
+    recording, each layer runs under ``torch.utils.checkpoint`` (its
+    activations are recomputed in the backward pass, as the reference's
+    ``jax.checkpoint`` over its layer units does)."""
     x = _embed(params, cfg, batch)
     cos, sin = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
     prefix, period = unit_period(cfg)
     aux_tot = _zero_aux(x.device)
     units = []
+    remat = remat and torch.is_grad_enabled()
     for i, lp in enumerate(params["layers"]):
-        x, aux = _apply_layer(lp, cfg, i, x, cos, sin, impl)
+        if remat:
+            x, aux = checkpoint(_apply_layer, lp, cfg, i, x, cos, sin, impl,
+                                use_reentrant=False)
+        else:
+            x, aux = _apply_layer(lp, cfg, i, x, cos, sin, impl)
         if i < prefix:
             aux_tot = _add_aux(aux_tot, aux)
             continue
@@ -245,11 +255,10 @@ def forward(params: dict, cfg: ModelConfig, batch, *, remat: bool = True,
     embeddings -> logits (B, S, vocab) and the aux terms (MoE's
     load-balance, z and drop fraction, summed over the layers).
 
-    ``remat`` is accepted for the reference's signature and has no
-    effect: eager inference keeps no activations for a backward pass
-    (training, ROADMAP item 12, gives it a meaning)."""
-    del remat
-    x, aux = _stack(params, cfg, batch, impl)
+    ``remat`` recomputes each layer's activations in the backward pass
+    (``torch.utils.checkpoint``); it changes nothing where autograd does
+    not record."""
+    x, aux = _stack(params, cfg, batch, impl, remat)
     return _head(params, cfg, x), aux
 
 
@@ -258,12 +267,11 @@ def forward_features(params: dict, cfg: ModelConfig, batch, *,
                      unroll: bool = False) -> tuple[torch.Tensor, dict]:
     """Like :func:`forward` but stops before the LM head, returning the
     final-norm hidden states (B, S, d), so that a loss head can run
-    chunked.  ``remat`` and ``unroll`` are accepted for the reference's
-    signature and have no effect: the layer loop is always a Python
-    loop, and eager inference keeps no activations for a backward pass
-    (training, ROADMAP item 12, gives ``remat`` a meaning)."""
-    del remat, unroll
-    x, aux = _stack(params, cfg, batch, impl)
+    chunked.  ``remat`` as in :func:`forward`; ``unroll`` is accepted
+    for the reference's signature and has no effect: the layer loop is
+    always a Python loop."""
+    del unroll
+    x, aux = _stack(params, cfg, batch, impl, remat)
     return norm(params["final_norm"], x, cfg.norm), aux
 
 
@@ -295,9 +303,9 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype: torch.dtype = torch.bfloat16, *, device="cuda") -> dict:
     """One cache per layer, by kind: ``{"k", "v"}`` for GQA attention,
     ``{"c_kv", "k_rope"}`` for MLA, ``{"conv", "ssm"}`` for Mamba.
+    ``{"C", "n", "m"}`` for mLSTM and ``{"c", "n", "h", "m"}`` for sLSTM.
     bf16 by default whatever ``cfg.dtype`` is, as in the reference
-    (Mamba's ssm state is f32)."""
-    check_supported(cfg)
+    (Mamba's ssm state and the xLSTM states are f32)."""
     return {"layers": [_mixer(cfg, i).init_cache(
         cfg, batch, max_len, dtype, device=device)
         for i in range(cfg.n_layers)]}
@@ -355,17 +363,6 @@ def prefill(params: dict, cfg: ModelConfig, batch, max_len: int, *,
     return logits, cache
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def model_flops(cfg: ModelConfig, n_params_active: int,
                 n_tokens: int) -> float:
     """MODEL_FLOPS = 6 * N_active * D (the roofline 'useful work' term)."""
@@ -373,4 +370,4 @@ def model_flops(cfg: ModelConfig, n_params_active: int,
 
 
 def count_params(params: dict) -> int:
-    return sum(int(t.numel()) for t in _leaves(params))
+    return sum(int(t.numel()) for _, t in flatten(params))

@@ -33,7 +33,8 @@ from repro_torch.models import transformer as PT
 _TOL = 1e-4
 
 #: (arch, config overrides): QKV bias, g = 4, Hkv = 1, gelu/layernorm,
-#: non-causal with embedding inputs and D = 20, and a sliding window
+#: non-causal with embedding inputs and D = 20, a sliding window, and
+#: causal with embedding inputs (pixtral)
 _MODELS = [
     ("qwen1.5-0.5b", ()),
     ("mistral-nemo-12b", ()),
@@ -41,9 +42,10 @@ _MODELS = [
     ("starcoder2-7b", ()),
     ("hubert-xlarge", ()),
     ("mistral-nemo-12b", (("sliding_window", 8),)),
+    ("pixtral-12b", ()),
 ]
 _IDS = ["qwen", "mistral", "internlm2", "starcoder2", "hubert",
-        "mistral-window8"]
+        "mistral-window8", "pixtral"]
 
 
 @pytest.fixture(autouse=True)

@@ -378,13 +378,20 @@ def test_cpu_hybrid_forward_counts_no_launch():
 
 
 def test_only_xlstm_raises():
+    """xLSTM, once the only arch that raised, is ported: every arch's
+    smoke config initialises and gives a cache for each of its layers,
+    one per layer kind's mixer (the hybrid and xLSTM ones included)."""
     for arch in ref_configs.arch_names():
         cfg = pt_configs.get_config(arch, "smoke")
-        if {"mlstm", "slstm"} & set(cfg.block_pattern):
-            with pytest.raises(NotImplementedError):
-                PT.check_supported(cfg)
-        else:
-            PT.check_supported(cfg)
+        params = PT.init(cfg, device="cpu")
+        cache = PT.init_cache(cfg, 1, 8, device="cpu")
+        assert len(params["layers"]) == len(cache["layers"]) == cfg.n_layers
+        for i, c in enumerate(cache["layers"]):
+            want = {"attn": {"k", "v"} if cfg.attn_type == "gqa"
+                    else {"c_kv", "k_rope"}, "mamba": {"conv", "ssm"},
+                    "mlstm": {"C", "n", "m"},
+                    "slstm": {"c", "n", "h", "m"}}[cfg.layer_kind(i)]
+            assert set(c) == want, (arch, i)
 
 
 # --------------------------------------------------------------------------

@@ -435,6 +435,67 @@ def test_rmsnorm_kernel_matches_plain_on_card(cuda, R, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("R,D", [(8192, 1024), (64, 768)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_rmsnorm_autograd_matches_plain_on_card(cuda, R, D, dtype):
+    """F5: under grad the kernel runs inside an ``autograd.Function``
+    (one launch), and its output, dx and dscale (the plain f32 backward)
+    agree with autograd through the plain version, at the training
+    path's 8,192 rows and xlstm's width."""
+    g = torch.Generator().manual_seed(R)
+    dt = getattr(torch, dtype)
+    x0 = torch.randn(R, D, generator=g).to(cuda, dt)
+    s0 = (torch.randn(D, generator=g) * 0.1 + 1.0).to(cuda)
+    gy = torch.randn(R, D, generator=g).to(cuda, dt)
+    x, s = x0.clone().requires_grad_(), s0.clone().requires_grad_()
+    before = rmsnorm_rows.launches
+    y = rmsnorm_rows(x, s)
+    assert rmsnorm_rows.launches == before + 1 and y.grad_fn is not None
+    dx, ds = torch.autograd.grad(y, (x, s), gy)
+    xp, sp = x0.clone().requires_grad_(), s0.clone().requires_grad_()
+    yp = rmsnorm_rows_plain(xp, sp)
+    dxp, dsp = torch.autograd.grad(yp, (xp, sp), gy)
+    torch.cuda.synchronize()
+    tol = _TOL[dtype]
+    for a, b in ((y, yp), (dx, dxp), (ds, dsp)):
+        assert a.dtype == b.dtype
+        torch.testing.assert_close(a.detach().float(), b.float(), rtol=tol,
+                                   atol=tol)
+
+
+@pytest.mark.cuda
+def test_kernels_without_backward_raise_under_grad_on_card(cuda):
+    """F5: flash attention, decode attention and the selective scan have
+    no backward: where autograd would record they raise, and under
+    ``no_grad`` the same calls launch."""
+    g = torch.Generator().manual_seed(1)
+
+    def rnd(*shape, dtype=torch.bfloat16):
+        return torch.randn(shape, generator=g).to(cuda, dtype)
+    q, kv = rnd(1, 64, 4, 64), rnd(1, 64, 4, 64)
+    qd = rnd(1, 4, 64)
+    lens = torch.full((1,), 64, dtype=torch.int32, device=cuda)
+    x, dt = rnd(1, 16, 64, dtype=torch.float32), \
+        rnd(1, 16, 64, dtype=torch.float32).abs() * 0.1
+    bm, cm = rnd(1, 16, 16, dtype=torch.float32), \
+        rnd(1, 16, 16, dtype=torch.float32)
+    a, d = -rnd(64, 16, dtype=torch.float32).abs(), rnd(64,
+                                                         dtype=torch.float32)
+    calls = {"flash_attention": lambda q: flash_attention(q, kv, kv),
+             "decode_attention": lambda q: decode_attention(q, kv, kv, lens),
+             "mamba_scan": lambda q: mamba_scan(q, dt, bm, cm, a, d)}
+    firsts = {"flash_attention": q, "decode_attention": qd, "mamba_scan": x}
+    for name, call in calls.items():
+        leaf = firsts[name].clone().requires_grad_()
+        with pytest.raises(RuntimeError, match="no backward"):
+            call(leaf)
+        with torch.no_grad():
+            out = call(leaf)
+        assert out.grad_fn is None
+    torch.cuda.synchronize()
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("B,H,Hkv,T,D,lengths", [
     (1, 16, 16, 512, 64, [1]),
     (1, 16, 16, 512, 64, [100]),

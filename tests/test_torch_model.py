@@ -137,10 +137,14 @@ def test_params_from_numpy_round_trips_shapes(arch):
 
 
 def test_unsupported_archs_raise():
-    """Only xLSTM is left to port; deepseek-v2 (MLA) initialises."""
-    with pytest.raises(NotImplementedError):
-        PT.init(pt_configs.get_config("xlstm-125m", "smoke"), device="cpu")
+    """No arch is left unsupported: xLSTM, the last to be ported, and
+    deepseek-v2 (MLA) initialise; a layer kind no arch has raises."""
+    PT.init(pt_configs.get_config("xlstm-125m", "smoke"), device="cpu")
     PT.init(pt_configs.get_config("deepseek-v2-236b", "smoke"), device="cpu")
+    cfg = pt_configs.get_config("qwen1.5-0.5b", "smoke").replace(
+        block_pattern=("conv",))
+    with pytest.raises(KeyError):
+        PT.init(cfg, device="cpu")
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])

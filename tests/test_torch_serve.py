@@ -163,11 +163,37 @@ def smoke_f32():
     return cfg_ref, params, cfg, port
 
 
+def _f32_models(arch: str, window):
+    """f32 smoke configs of ``arch`` with ``sliding_window`` set, the
+    reference's weights and the same weights in the port's layout."""
+    kw = dict(dtype="float32", sliding_window=window)
+    cfg_ref = ref_get_config(arch, "smoke").replace(**kw)
+    cfg = get_config(arch, "smoke").replace(**kw)
+    params = jax.jit(lambda key: RT.init(key, cfg_ref))(jax.random.PRNGKey(0))
+    port = interop.params_from_numpy(jax.tree.map(np.asarray, params), cfg,
+                                     device="cpu")
+    return cfg_ref, params, cfg, port
+
+
 @pytest.mark.parametrize("scenario", ["plain", "warm"])
 @pytest.mark.parametrize("kind", ["fifo", "symbiotic"])
 def test_engine_matches_reference(smoke_f32, monkeypatch, scenario, kind):
     monkeypatch.setattr(ref_attention, "decode_sdpa", kernel_decode_sdpa)
-    cfg_ref, params, cfg, port = smoke_f32
+    _engine_parity(*smoke_f32, scenario, kind)
+
+
+@pytest.mark.parametrize("window", [None, 8], ids=["full", "window8"])
+@pytest.mark.parametrize("arch", ["starcoder2-7b", "internlm2-20b",
+                                  "mistral-nemo-12b"])
+def test_engine_matches_reference_on_archs(monkeypatch, arch, window):
+    """The warm scenario under the symbiotic policy on the other dense
+    archs, with full attention and with an 8-token window (the ring
+    buffer wraps: 4 prompt and 6 new tokens)."""
+    monkeypatch.setattr(ref_attention, "decode_sdpa", kernel_decode_sdpa)
+    _engine_parity(*_f32_models(arch, window), "warm", "symbiotic")
+
+
+def _engine_parity(cfg_ref, params, cfg, port, scenario, kind):
     reqs, arr = _scenario(RRequest, scenario)
     ref_eng = REngine(cfg_ref, params, max_len=32,
                       policy=RPolicy(kind=kind))
