@@ -207,7 +207,32 @@ no phase catches its own failure:
               run to run); ``serve(..., ckpt_dir=...)`` from
               the result, every request finished; xlstm-125m at full
               width for 5 steps at B 8 x S 512, finite losses and
-              gradient norms, 25 RMSNorm launches a step.
+              gradient norms, 25 RMSNorm launches a step;
+22. dist    — ``make_host_mesh()`` on the card (a world-1 NCCL group, a
+              1 x 1 ("data", "model") DeviceMesh; §21's ``train()``
+              starts it) and one NCCL all-reduce on it (the mesh's
+              collectives return their input over its one-rank axes);
+              one MoE layer of deepseek-v2-236b (E 160, top
+              6, 2 shared, d 5120) and of mixtral-8x7b (E 8, top 2) at
+              full width, weights drawn on the card, B 1 x S 512 in f32
+              and bf16: ``_fwd_ep`` and ``_fwd_tp`` against
+              ``_fwd_local`` within 2e-4 / 2e-2 with equal drop
+              fractions, at a capacity factor of E / K (nothing drops)
+              and at the config's 1.25 (the capacities coincide at 512
+              tokens), and printed at 40 tokens where they differ; ms per
+              call of each path in bf16; qwen1.5-0.5b at full width for 3
+              steps (B 8 x S 1024) through ``train(mesh_kind="host")``,
+              the sharded step, its losses bit-equal to the bare
+              ``make_train_step``'s from the same seed, 97 RMSNorm
+              launches a step; the bare step and the sharded one on
+              the state's blocks in turns for 5 steps, bit-equal
+              losses, ms per step of both; §21's resumed step-20
+              checkpoint restored with ``shardings=`` onto the mesh,
+              every leaf a DTensor bit-equal to the plain restore; the
+              dry run of qwen's four cells on the 16 x 16 description
+              (``python -m repro_torch.launch.dryrun``, a child process
+              started beside §21) and their roofline rows with the
+              H100's ``HW``.
 
 §4 also times flash attention and SDPA at qwen's B 1 x S 32768.  §9 also
 serves the three traced archs with ``respect_deps`` sliced and sliced
@@ -217,7 +242,7 @@ slice rounds, modelled time and cache counters identical.
 
 The kernels' record counts each kernel's launches on the main paths:
 the decode steps of §5, §16, §18, §19 and §20, the prefills of §7 and
-§18, and §21's 20 straight train steps.
+§18, §21's 20 straight train steps and §22's 3 on the host mesh.
 The last lines are the kernels' JSON record, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes a
 fuller JSON report (every timing repeat, the profiles' top kernels).
@@ -227,12 +252,14 @@ Exits 1 at once where ``torch.cuda.is_available()`` is false.
 from __future__ import annotations
 
 import argparse
+import atexit
 import gc
 import itertools
 import json
 import os
 import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -243,6 +270,7 @@ import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
+T_START = time.perf_counter()
 HERE = Path(__file__).resolve().parent
 SRC = HERE / "src"
 
@@ -648,6 +676,257 @@ def design_space(core, es, dev, errs: list, *, max_ref: int = 4096,
                   f"{rep[f'{k}_misranked_max_gap']:.3e}")
         out[name] = rep
     return out
+
+
+def dist_phase(report: dict, dev, ckpt_dir: Path, ckpt_step: int,
+               dry_proc, dry_out: Path) -> dict:
+    """§22: the host mesh, MoE's distributed paths at full width, the
+    sharded train step, the elastic restore of ``ckpt_dir``'s checkpoint
+    at ``ckpt_step`` (§21's resumed run) and the dry run started as
+    ``dry_proc`` (records under ``dry_out``).  Returns the sharded train
+    run's kernel launches."""
+    import torch.distributed as tdist
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.context import act_ctx
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.launch.train import train
+    from repro_torch.models.moe import MoE
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import flatten, tree_map, tree_map_with_path
+    from repro_torch.roofline import HW, roofline_row
+    from repro_torch.train import (init_train_state, make_sharded_train_step,
+                                   make_train_step, restore_checkpoint,
+                                   shard_train_state)
+    from repro_torch.train.sharded import train_state_shardings
+    t22 = time.perf_counter()
+    d_rep: dict = {}
+    mesh = make_host_mesh(dev.type)
+    backend, world = tdist.get_backend(), tdist.get_world_size()
+    print(f"[dist] process group: backend {backend}, world {world}; {mesh}")
+    want_backend = "nccl" if dev.type == "cuda" else "gloo"
+    require(backend == want_backend and world == 1
+            and mesh.mesh_dim_names == ("data", "model")
+            and tuple(mesh.shape) == (1, 1),
+            f"host mesh: backend {backend}, world {world}, {mesh}")
+    # the mesh's collectives are the identity over its one-rank axes, so
+    # one all-reduce on the world group shows that NCCL runs
+    ones = torch.ones(4, device=dev)
+    tdist.all_reduce(ones)
+    torch.cuda.synchronize()
+    require(torch.equal(ones, torch.ones(4, device=dev)),
+            f"one-rank {backend} all-reduce gave {ones.tolist()}")
+    print(f"[dist] one {backend} all-reduce on the world group: "
+          f"{ones.tolist()}")
+    d_rep["mesh"] = {"backend": backend, "world": world, "mesh": str(mesh)}
+
+    # one MoE layer at full width through _fwd_ep and _fwd_tp (their
+    # dispatch, capacity and combine; the all-to-all and all-reduce over
+    # the mesh's one-rank "model" group return their input) against
+    # _fwd_local on B 1 x S 512 tokens: with the capacity factor at E / K
+    # (a slot for every token at every expert: no path drops), and at the
+    # config's 1.25, where the three paths' capacities coincide at 512
+    # tokens (deepseek-v2 24 slots, mixtral 160); at 40 tokens they do
+    # not (EP's a multiple of 4, the others' of 8)
+    moe_tol = {torch.float32: 2e-4, torch.bfloat16: 2e-2}
+    d_rep["moe"] = {}
+    for arch in ("deepseek-v2-236b", "mixtral-8x7b"):
+        cfg0 = get_config(arch, "full")
+        E, K = cfg0.n_experts, cfg0.top_k
+        gen = torch.Generator(device=dev).manual_seed(0)
+        p32 = MoE.init(gen, cfg0, dtype=torch.float32, device=dev)
+        x32 = torch.randn((1, 512, cfg0.d_model), generator=gen, device=dev)
+        n_w = sum(t.numel() for _, t in flatten(p32))
+        a_rep = {"weights": n_w, "cases": []}
+        print(f"[dist] {arch}: one MoE layer, E {E}, top {K}, "
+              f"{cfg0.n_shared_experts} shared, d {cfg0.d_model}, moe_d_ff "
+              f"{cfg0.moe_d_ff}: {n_w} weights drawn on the card")
+        for dt in (torch.float32, torch.bfloat16):
+            p = p32 if dt == torch.float32 else tree_map_with_path(
+                lambda path, t: t if "router" in path else t.to(dt), p32)
+            for label, cf, S in (("no drop", E / K, 512),
+                                 ("default", cfg0.capacity_factor, 512),
+                                 ("default", cfg0.capacity_factor, 40)):
+                cfg = cfg0.replace(capacity_factor=cf)
+                x = x32[:, :S].to(dt)
+                with torch.no_grad():
+                    y_l, a_l = MoE._fwd_local(p, cfg, x)
+                    with act_ctx(dp="data", tp="model", mesh=mesh):
+                        outs = {"ep": MoE._fwd_ep(p, cfg, x),
+                                "tp": MoE._fwd_tp(p, cfg, x)}
+                drop_l = float(a_l["moe_drop_frac"])
+                case = {"dtype": str(dt), "capacity_factor": cf, "tokens": S,
+                        "local_drop_frac": drop_l}
+                for nm, (y, a) in outs.items():
+                    err = (y.float() - y_l.float()).abs().max().item()
+                    drop = float(a["moe_drop_frac"])
+                    case[nm] = {"max_abs_err": err, "drop_frac": drop}
+                    if S == 512:
+                        require(torch.allclose(y.float(), y_l.float(),
+                                               rtol=moe_tol[dt],
+                                               atol=moe_tol[dt])
+                                and drop == drop_l
+                                and (label == "default" or drop == 0.0),
+                                f"{arch} {label} {dt}: _fwd_{nm} against "
+                                f"_fwd_local: max abs err {err:.3e} (tol "
+                                f"{moe_tol[dt]:g}), drop fractions {drop}, "
+                                f"{drop_l}")
+                print(f"[dist]   {dt} cf {cf:g} ({label}), {S} tokens: "
+                      f"_fwd_local drops {drop_l:.4f}; _fwd_ep max abs err "
+                      f"{case['ep']['max_abs_err']:.3e}, drops "
+                      f"{case['ep']['drop_frac']:.4f}; _fwd_tp max abs err "
+                      f"{case['tp']['max_abs_err']:.3e}, drops "
+                      f"{case['tp']['drop_frac']:.4f}"
+                      + (f" (tol {moe_tol[dt]:g})" if S == 512 else
+                         " (capacities differ: printed, not compared)"))
+                a_rep["cases"].append(case)
+        # ms per call in bf16 at the config's capacity factor
+        x = x32.to(torch.bfloat16)
+
+        def on_mesh(fn):
+            def call():
+                with act_ctx(dp="data", tp="model", mesh=mesh):
+                    return fn(p, cfg0, x)
+            return call
+
+        with torch.no_grad():
+            ms = {"local": time_ms(lambda: MoE._fwd_local(p, cfg0, x), n=10,
+                                   warm=3, repeats=3),
+                  "ep": time_ms(on_mesh(MoE._fwd_ep), n=10, warm=3,
+                                repeats=3),
+                  "tp": time_ms(on_mesh(MoE._fwd_tp), n=10, warm=3,
+                                repeats=3)}
+        a_rep["ms_bf16_512"] = ms
+        print(f"[dist]   ms per call, bf16, 512 tokens: _fwd_local "
+              f"{ms['local']:.3f}, _fwd_ep {ms['ep']:.3f} (its dispatch "
+              f"and combine: {ms['ep'] - ms['local']:+.3f}), _fwd_tp "
+              f"{ms['tp']:.3f}")
+        d_rep["moe"][arch] = a_rep
+        del p32, p, x32, x, y_l, outs
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    # the sharded train step at world 1 through train(mesh_kind="host")
+    # against the bare make_train_step from the same seed and batches
+    cfg_t = get_config("qwen1.5-0.5b", "full")
+    per_step = 4 * cfg_t.n_layers + 1
+    ck22 = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt22_"))
+    atexit.register(shutil.rmtree, ck22, True)
+    reset_launch_counts()
+    sharded = train("qwen1.5-0.5b", variant="full", steps=3, global_batch=8,
+                    seq_len=1024, ckpt_dir=str(ck22), ckpt_every=0,
+                    mesh_kind="host", log_fn=lambda s, m: None,
+                    device=dev.type)
+    sharded_counts = launch_counts()
+    shutil.rmtree(ck22, ignore_errors=True)
+    require(sharded_counts == {k: 3 * per_step if k == "rmsnorm" else 0
+                               for k in sharded_counts},
+            f"sharded train(): launches {sharded_counts}; want {per_step} "
+            "RMSNorm a step")
+    opt_t = AdamWConfig(warmup_steps=5, total_steps=3)
+    data_t = SyntheticLM(DataConfig(vocab=cfg_t.vocab, seq_len=1024,
+                                    global_batch=8))
+    batches = [data_t.next_batch() for _ in range(5)]
+    p0, o0 = init_train_state(cfg_t, seed=0, device=dev)
+
+    # the bare step and the sharded one (the step train() runs, on the
+    # state's blocks) in turns on the same 5 batches, each synchronised
+    runs = {"bare": [make_train_step(cfg_t, opt_t), p0, o0],
+            "sharded": [make_sharded_train_step(cfg_t, opt_t, mesh),
+                        *shard_train_state(p0, o0, mesh)]}
+    losses = {k: [] for k in runs}
+    step_ms = {k: [] for k in runs}
+    for b in batches:
+        for k, r in runs.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            r[1], r[2], m = r[0](r[1], r[2], b)
+            losses[k].append(float(m["loss"]))
+            step_ms[k].append((time.perf_counter() - t0) * 1e3)
+    del runs
+    bare_losses, bare_ms, sharded_ms = (losses["bare"], step_ms["bare"],
+                                        step_ms["sharded"])
+    require(losses["sharded"] == bare_losses,
+            "the sharded step's losses, in turns, are not the bare step's "
+            "bits")
+    print(f"[dist] qwen1.5-0.5b full, B 8 x S 1024, 3 steps: train("
+          f"mesh_kind='host') losses {sharded['losses']}, the bare "
+          f"make_train_step's {bare_losses[:3]}; launches {sharded_counts}")
+    print(f"[dist]   ms per step (synchronised, in turns): bare "
+          f"{[round(v, 1) for v in bare_ms]}, sharded "
+          f"{[round(v, 1) for v in sharded_ms]}; medians "
+          f"{statistics.median(bare_ms):.1f} and "
+          f"{statistics.median(sharded_ms):.1f}")
+    require(sharded["losses"] == bare_losses[:3],
+            "train()'s losses are not the bare step's bits")
+    d_rep["train"] = {"sharded_losses": sharded["losses"],
+                      "bare_losses": bare_losses, "bare_ms": bare_ms,
+                      "sharded_ms": sharded_ms, "launches": sharded_counts}
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # §21's resumed run's step-20 checkpoint restored onto the host mesh
+    target = tree_map(torch.empty_like, {"params": p0, "opt": o0})
+    t0 = time.perf_counter()
+    plain, _ = restore_checkpoint(str(ckpt_dir), target, step=ckpt_step)
+    t_plain = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    placed, extra = restore_checkpoint(
+        str(ckpt_dir), target, step=ckpt_step,
+        shardings=train_state_shardings(p0, mesh))
+    t_sharded = time.perf_counter() - t0
+    pairs = list(zip(flatten(placed), flatten(plain)))
+    same = all(torch.equal(d.to_local(), w) and d.shape == w.shape
+               for (_, d), (_, w) in pairs)
+    n_bytes = sum(w.numel() * w.element_size() for _, (_, w) in pairs)
+    print(f"[dist] restore(shardings=) of §21's step-{ckpt_step} checkpoint "
+          f"onto the "
+          f"host mesh: {len(pairs)} DTensor leaves, {n_bytes} bytes, "
+          f"bit-equal to the plain restore: {same}; {t_sharded:.1f} s "
+          f"(plain {t_plain:.1f} s); extra {extra}")
+    require(same, "restore(shardings=): the bits differ from the plain "
+            "restore's")
+    d_rep["restore"] = {"leaves": len(pairs), "bytes": n_bytes,
+                        "s": t_sharded, "plain_s": t_plain}
+    del p0, o0, target, plain, placed, pairs
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the dry run of qwen's four cells on the 16 x 16 description (started
+    # beside §21), and the roofline rows with the H100's figures
+    dry_text, _ = dry_proc.communicate(timeout=600)
+    for line in dry_text.splitlines():
+        print(f"[dryrun] {line}")
+    require(dry_proc.returncode == 0,
+            f"the dry run exited {dry_proc.returncode}")
+    records = json.loads((dry_out / "records.json").read_text())
+    run_s = sum(r.get("run_s", 0.0) for r in records)
+    require(len(records) == 4 and not any("error" in r for r in records),
+            f"dry run records: {records}")
+    hw = HW()
+    print(f"[dryrun] qwen1.5-0.5b, 4 cells on 16 x 16: {run_s:.1f} s of "
+          f"meta programs; roofline rows (HW {hw}):")
+    rows_d = []
+    for r in records:
+        row = roofline_row(r, hw)
+        rows_d.append(row)
+        if "skipped" in row:
+            print(f"[dryrun]   {row['shape']}: skipped ({row['skipped']})")
+            continue
+        print(f"[dryrun]   {row['shape']}: compute {row['t_compute_s']:.4g} s"
+              f", memory {row['t_memory_s']:.4g} s, collective "
+              f"{row['t_collective_s']:.4g} s ({row['dominant']}); "
+              f"roofline fraction {row['roofline_fraction']:.4f}; rank 0 "
+              f"counted {row['raw_cost_flops_dev']:.4g} FLOPs, "
+              f"{row['raw_coll_bytes_dev']:.4g} collective bytes")
+    d_rep["dryrun"] = {"records": records, "rows": rows_d, "run_s": run_s}
+    d_rep["phase_s"] = time.perf_counter() - t22
+    report["dist"] = d_rep
+    print(f"[dist] §22 took {d_rep['phase_s']:.1f} s; the script "
+          f"{time.perf_counter() - T_START:.1f} s so far")
+    return sharded_counts
 
 
 def main(argv=None) -> int:
@@ -2605,6 +2884,17 @@ def main(argv=None) -> int:
     # by a second call on the same directory, and serve() from the result;
     # then xlstm-125m at full width for 5 steps at B 8 x S 512
     t21 = time.perf_counter()
+    # §22's dry run (host work on meta tensors, no card) runs in a child
+    # process beside §21; §22 waits for it and reads its records
+    dry_out = Path(tempfile.mkdtemp(prefix="chip_smoke_dryrun_"))
+    atexit.register(shutil.rmtree, dry_out, True)
+    dry_t0 = time.perf_counter()
+    dry_proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+         "qwen1.5-0.5b", "--out", str(dry_out / "records.json")],
+        env={**os.environ, "PYTHONPATH": str(SRC)}, stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True)
+    atexit.register(dry_proc.kill)
     gc.collect()
     torch.cuda.empty_cache()
     cfg_t = get_config("qwen1.5-0.5b", "full")
@@ -2673,6 +2963,9 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
 
     ck_root = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    # removed at exit, or by §22 once it has restored the resumed run's
+    # step-20 checkpoint
+    atexit.register(shutil.rmtree, ck_root, True)
     try:
         kw = dict(variant="full", steps=20, global_batch=8, seq_len=1024,
                   ckpt_every=10)
@@ -2748,7 +3041,7 @@ def main(argv=None) -> int:
                       resume_max_abs_diff=rdiff, resume_manifest_extra=extra,
                       served_from_checkpoint=outs)
     finally:
-        shutil.rmtree(ck_root, ignore_errors=True)
+        shutil.rmtree(ck_root / "straight", ignore_errors=True)
     torch.cuda.empty_cache()
 
     cfg_xt = get_config("xlstm-125m", "full")
@@ -2784,11 +3077,15 @@ def main(argv=None) -> int:
     print(f"[train] §20 took {xl_rep['phase_s']:.1f} s, §21 "
           f"{tr_rep['phase_s']:.1f} s")
 
+    # 22. dist --------------------------------------------------------------
+    sharded_counts = dist_phase(report, dev, ck_root / "resume", 20,
+                                dry_proc, dry_out)
+
     # record ----------------------------------------------------------------
     # launches on the main paths: qwen, deepseek and mixtral decode steps
     # (§5, §16, §18), qwen and mixtral prefills (§7, §18), the sliced,
     # incremental front end's decode steps (§19), xlstm's decode steps
-    # (§20) and qwen's train steps (§21)
+    # (§20) and qwen's train steps (§21, and §22's on the host mesh)
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:26",
                            serve_counts["rmsnorm"]
@@ -2796,7 +3093,8 @@ def main(argv=None) -> int:
                            + mixtral_decode_counts["rmsnorm"]
                            + live_counts["rmsnorm"]
                            + xlstm_serve_counts["rmsnorm"]
-                           + train_counts["rmsnorm"]),
+                           + train_counts["rmsnorm"]
+                           + sharded_counts["rmsnorm"]),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:68",
                                     serve_counts["decode_attention"]

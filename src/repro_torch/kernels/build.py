@@ -23,13 +23,17 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-__all__ = ["CSRC", "NVCC_FLAGS", "library", "build_dir", "find_nvcc"]
+__all__ = ["CSRC", "NVCC_FLAGS", "PLAIN_DEVICES", "library", "build_dir",
+           "find_nvcc"]
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 _ROOT = Path(__file__).resolve().parents[3]
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 _LIB = "libreprokernels.so"
+#: devices whose tensors a kernel wrapper hands to its plain version: the
+#: CPU, and ``meta`` (shapes only: the dry run and the FLOP count)
+PLAIN_DEVICES = ("cpu", "meta")
 
 
 def find_nvcc() -> str:

@@ -18,7 +18,8 @@ the TPU kernel does (``decode_sdpa`` rounds them to the cache dtype
 first).  The output is in q's dtype.
 
 :func:`decode_attention` launches the kernel for CUDA tensors and uses
-:func:`decode_attention_plain` only for tensors on the CPU; on a CUDA
+:func:`decode_attention_plain` only for tensors on the CPU
+or on ``meta`` (shapes only); on a CUDA
 tensor it launches or raises.  ``decode_attention.launches`` counts the
 kernel's launches.
 """
@@ -31,6 +32,7 @@ from typing import NamedTuple
 
 import torch
 
+from .build import PLAIN_DEVICES as _PLAIN_DEVICES
 from .build import library
 from .nograd import refuse_grad
 
@@ -175,7 +177,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      lengths: torch.Tensor) -> torch.Tensor:
     """q: (B, H, D), k/v: (B, T, Hkv, D), lengths: (B,) int32 ->
     (B, H, D) in q's dtype.  Rows of length 0 give zeros on the card."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return decode_attention_plain(q, k, v, lengths)
     refuse_grad("decode_attention", q, k, v)
     _check(q, k, v, lengths)

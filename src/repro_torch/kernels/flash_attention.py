@@ -20,7 +20,8 @@ the TPU kernel and ``ref.flash_attention_ref`` do.  The output is in
 q's dtype.
 
 :func:`flash_attention` launches the kernel for CUDA tensors and uses
-:func:`flash_attention_plain` only for tensors on the CPU; on a CUDA
+:func:`flash_attention_plain` only for tensors on the CPU
+or on ``meta`` (shapes only); on a CUDA
 tensor it launches or raises.  ``flash_attention.launches`` counts the
 kernel's launches.
 """
@@ -33,6 +34,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
+from .build import PLAIN_DEVICES as _PLAIN_DEVICES
 from .build import library
 from .nograd import refuse_grad
 
@@ -143,7 +145,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     at most 128, and S <= T.  A head dim that is not a multiple of 8 is
     zero-padded here (the padded columns add nothing to a dot product
     and are cut from the output)."""
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     refuse_grad("flash_attention", q, k, v)
     _check(q, k, v, window)

@@ -21,7 +21,8 @@ from the shapes and the card's SM count; the source note in the ``.cu``
 file has the details.
 
 :func:`mamba_scan` launches the kernel for CUDA tensors and uses
-:func:`mamba_scan_plain` only for tensors on the CPU; on a CUDA tensor
+:func:`mamba_scan_plain` only for tensors on the CPU
+or on ``meta`` (shapes only); on a CUDA tensor
 it launches or raises.  ``mamba_scan.launches`` counts the kernel's
 launches.
 """
@@ -33,6 +34,7 @@ from typing import NamedTuple
 
 import torch
 
+from .build import PLAIN_DEVICES as _PLAIN_DEVICES
 from .build import library
 from .nograd import refuse_grad
 
@@ -132,7 +134,10 @@ def mamba_scan_plain(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
                      d_skip: torch.Tensor) -> torch.Tensor:
     """The step loop of the reference's ``ref.mamba_scan_ref``: x/dt
     (B, T, Dc), bm/cm (B, T, S), a (Dc, S), d_skip (Dc,) -> y (B, T, Dc)
-    in x's dtype, computed in f32."""
+    in x's dtype, computed in f32.  On ``meta`` the step loop would only
+    repeat shapes: the output's is x's."""
+    if x.device.type == "meta":
+        return torch.empty_like(x)
     B, T, Dc = x.shape
     S = bm.shape[-1]
     xf, dtf, bf, cf = (t.float() for t in (x, dt, bm, cm))
@@ -190,7 +195,7 @@ def mamba_scan(x: torch.Tensor, dt: torch.Tensor, bm: torch.Tensor,
     """x/dt (B, T, Dc), bm/cm (B, T, S) of x's dtype (f32 or bf16; bm and
     cm may be strided views, as slices of one projection are), a (Dc, S)
     and d_skip (Dc,) f32 -> y (B, T, Dc) in x's dtype."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return mamba_scan_plain(x, dt, bm, cm, a, d_skip)
     refuse_grad("mamba_scan", x, dt, bm, cm, a, d_skip)
     _check(x, dt, bm, cm, a, d_skip)

@@ -1,6 +1,6 @@
 """Public kernel entry points with the reference's signatures
-(``repro.kernels.ops``), minus its ``interpret`` flag: a CPU tensor
-takes the plain version, a CUDA tensor the Hopper kernel.
+(``repro.kernels.ops``), minus its ``interpret`` flag: a CPU (or
+``meta``) tensor takes the plain version, a CUDA tensor the Hopper kernel.
 ``mamba_scan(x, dt, bm, cm, a, d_skip)`` is the selective scan.
 """
 

@@ -10,7 +10,8 @@ memory) is for the row counts where bytes matter; the source note in
 the ``.cu`` file has the details.
 
 :func:`rmsnorm_rows` launches the kernel for CUDA tensors and uses
-:func:`rmsnorm_rows_plain` only for tensors on the CPU; on a CUDA
+:func:`rmsnorm_rows_plain` only for tensors on the CPU
+or on ``meta`` (shapes only); on a CUDA
 tensor it launches or raises.  ``rmsnorm_rows.launches`` counts the
 kernel's launches.
 
@@ -27,6 +28,7 @@ from __future__ import annotations
 
 import torch
 
+from .build import PLAIN_DEVICES as _PLAIN_DEVICES
 from .build import library
 
 __all__ = ["rmsnorm_rows", "rmsnorm_rows_plain", "rmsnorm_rows_backward"]
@@ -104,7 +106,7 @@ def _check(x: torch.Tensor, scale: torch.Tensor) -> None:
 def rmsnorm_rows(x: torch.Tensor, scale: torch.Tensor, *,
                  eps: float = 1e-6) -> torch.Tensor:
     """x: (R, D), scale: (D,) f32 -> (R, D) in x's dtype."""
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return rmsnorm_rows_plain(x, scale, eps=eps)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RMSNormRows.apply(x, scale, eps)

@@ -1,13 +1,17 @@
 """Training entry point (the port of the reference's
 ``repro.launch.train``): seeded f32 master weights, the synthetic data
 pipeline and the fault-tolerant loop (auto-resume, async checkpoints,
-NaN guard) around the train step, on one device.
+NaN guard) around the sharded train step
+(:mod:`repro_torch.train.sharded`), on a mesh: ``--mesh host`` is the
+1 x 1 mesh of one device, ``single`` and ``multi`` the 16 x 16 and
+2 x 16 x 16 production meshes, which need 256 and 512 ranks:
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
       --variant full --steps 20 --batch 8 --seq 1024
+  PYTHONPATH=src torchrun --nnodes 32 --nproc-per-node 8 ... \
+      -m repro_torch.launch.train --mesh single --variant full
 
-Runs on ``cuda`` unless ``--device cpu`` is given.  ``--mesh host`` (one
-device) is the only mesh until ``dist`` is ported (ROADMAP §1 item 5).
+Runs on ``cuda`` unless ``--device cpu`` is given.
 """
 
 from __future__ import annotations
@@ -20,7 +24,10 @@ import torch
 from ..configs import arch_names, get_config
 from ..data import DataConfig, SyntheticLM
 from ..optim import AdamWConfig
-from ..train import LoopConfig, TrainLoop, init_train_state, make_train_step
+from ..train import LoopConfig, TrainLoop, init_train_state
+from ..train.sharded import (make_sharded_train_step, shard_train_state,
+                             train_state_shardings)
+from .mesh import make_host_mesh, make_production_mesh
 
 __all__ = ["main", "train"]
 
@@ -34,18 +41,26 @@ def train(arch: str, *, variant: str = "smoke", steps: int = 100,
     latest checkpoint; by default ``LoopConfig``'s, under the temporary
     directory) -> {"losses", "seconds", "first_loss", "last_loss"}, as
     the reference's ``train``; ``seconds`` is synchronised on a CUDA
-    device."""
-    if mesh_kind in ("single", "multi"):
-        raise NotImplementedError(
-            f"mesh_kind={mesh_kind!r}: the production meshes wait for the "
-            "port of dist (ROADMAP §1 item 5); use mesh_kind='host'")
-    if mesh_kind != "host":
+    device.  ``mesh_kind``: "host" (one device), "single" or "multi"
+    (the production meshes; they raise unless the job has their 256 or
+    512 ranks)."""
+    if mesh_kind == "host":
+        mesh = make_host_mesh(device)
+    elif mesh_kind in ("single", "multi"):
+        mesh = make_production_mesh(multi_pod=mesh_kind == "multi",
+                                    device=device)
+    else:
         raise ValueError(f"unknown mesh_kind {mesh_kind!r}")
+    if torch.device(device).type == "cuda":
+        # this rank's card (make_production_mesh set it from LOCAL_RANK)
+        device = torch.device("cuda", torch.cuda.current_device())
     cfg = get_config(arch, variant)
     params, opt_state = init_train_state(cfg, seed=0, device=device)
+    shardings = train_state_shardings(params, mesh)
+    params, opt_state = shard_train_state(params, opt_state, mesh)
     opt = AdamWConfig(lr=lr, warmup_steps=max(steps // 20, 5),
                       total_steps=steps)
-    step = make_train_step(cfg, opt, accum=accum)
+    step = make_sharded_train_step(cfg, opt, mesh, accum=accum)
     data = SyntheticLM(DataConfig(
         vocab=cfg.vocab, seq_len=seq_len, global_batch=global_batch))
 
@@ -61,7 +76,7 @@ def train(arch: str, *, variant: str = "smoke", steps: int = 100,
         cfg=LoopConfig(total_steps=steps, ckpt_every=ckpt_every,
                        ckpt_dir=ckpt_dir or LoopConfig().ckpt_dir,
                        log_every=10),
-        log_fn=log)
+        log_fn=log, shardings=shardings)
     params, opt_state, start = loop.resume_or_init(params, opt_state)
     dev = torch.device(device)
     t0 = time.perf_counter()

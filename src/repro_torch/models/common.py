@@ -121,7 +121,10 @@ def normal(gen: torch.Generator, shape: tuple[int, ...], scale: float,
            dtype: torch.dtype, device) -> torch.Tensor:
     """``scale`` times a standard normal draw from ``gen``, made on the
     generator's device (a CPU generator gives the same weights on every
-    device), stored in ``dtype`` on ``device``."""
+    device), stored in ``dtype`` on ``device``.  On ``meta`` nothing is
+    drawn: the tensor holds its shape and dtype only."""
+    if torch.device(device).type == "meta":
+        return torch.empty(shape, dtype=dtype, device="meta")
     w = torch.randn(shape, generator=gen, dtype=torch.float32,
                     device=gen.device)
     return w.mul_(scale).to(device=device, dtype=dtype)

@@ -1,5 +1,5 @@
 """Mixture-of-Experts with capacity-based, sort-free static dispatch (the
-port of the reference's ``repro.models.moe``, local path).
+port of the reference's ``repro.models.moe``).
 
 Static shapes: per-expert buffers of ``capacity`` slots, overflow tokens
 dropped (Switch/GShard semantics, earlier tokens win); slot indices come
@@ -8,6 +8,16 @@ segment-relative rank, and tokens are gathered into an ``(E, C, d)``
 buffer for a grouped matrix product per expert.  The router runs in
 float32 on a float32 weight (kept float32 whatever the compute dtype),
 with load-balance and z losses returned as aux terms.
+
+With a tensor-parallel mesh axis bound (:mod:`repro_torch.dist.context`)
+the layer takes the reference's distributed paths, each written as the
+per-rank program of the reference's ``shard_map`` body over plain local
+tensors and the collectives of ``dist.context``: expert parallelism
+(``E % tp == 0``: fixed-capacity all-to-all to the experts' ranks and
+back) or tensor parallelism inside the experts (each rank a ``d_ff``
+slice of every expert, then an all-reduce).  The port's activations are
+replicated over the ``model`` axis, so expert parallelism takes this
+rank's slice of the sequence and all-gathers its output back.
 """
 
 from __future__ import annotations
@@ -17,7 +27,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, act_fn, dense, make_dense, normal
+from ..dist import context as dctx
+from .common import ModelConfig, act_fn, make_dense, normal
 
 __all__ = ["MoE"]
 
@@ -68,28 +79,70 @@ class MoE:
     @staticmethod
     def fwd(p: dict, cfg: ModelConfig, x: torch.Tensor
             ) -> tuple[torch.Tensor, dict]:
-        """x: (B, S, d) -> (y, aux terms).  The local path only: the
-        reference's expert- and tensor-parallel paths need a mesh and come
-        with the distribution slice (ROADMAP item 13)."""
+        """x: (B, S, d) -> (y, aux terms).
+
+        Dispatches as the reference does: with a tensor-parallel axis of
+        size ``tp > 1`` bound on a mesh, expert parallelism where
+        ``E % tp == 0`` (:meth:`_fwd_ep`), else tensor parallelism
+        inside the experts (:meth:`_fwd_tp`); the local path otherwise.
+        """
+        tp = dctx.tp_size()
+        if tp > 1 and dctx.mesh() is not None:
+            if cfg.n_experts % tp == 0:
+                return MoE._fwd_ep(p, cfg, x)
+            return MoE._fwd_tp(p, cfg, x)
+        if dctx.dp_size() > 1:
+            return MoE._fwd_local(p, cfg, x,
+                                  aux_axes=MoE._token_axes()[0])
         return MoE._fwd_local(p, cfg, x)
 
     @staticmethod
-    def _fwd_local(p: dict, cfg: ModelConfig, x: torch.Tensor
-                   ) -> tuple[torch.Tensor, dict]:
+    def _fwd_local(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                   aux_axes: tuple = ()) -> tuple[torch.Tensor, dict]:
+        """The whole layer on this rank's tokens.  With ``aux_axes`` (the
+        data axes the rows are split over) the aux terms' means run over
+        them too, as the reference's SPMD program takes them over the
+        global batch; the capacity stays this rank's."""
         B, S, d = x.shape
         E, K = cfg.n_experts, cfg.top_k
         T = B * S
-        dev = x.device
         xt = x.reshape(T, d)
         C = MoE.capacity(cfg, T)
+        logits, probs, gates, flat_e, ranks, keep = MoE._route_local(
+            p, cfg, xt, C)
+        slot = flat_e * C + torch.where(keep, ranks, 0)        # (T*K,)
+        token_idx = torch.arange(T, device=x.device).repeat_interleave(K)
+        # Scatter tokens into the (E*C, d) buffer; a dropped assignment
+        # adds zeros to its expert's slot 0.
+        contrib = torch.where(keep[:, None], xt[token_idx], 0.0)
+        buf = torch.zeros((E * C, d), dtype=x.dtype,
+                          device=x.device).index_add(0, slot, contrib)
+        y_buf = _expert_ffn(p["experts"], buf.reshape(E, C, d), cfg.act)
+        y = MoE._combine(y_buf.reshape(E * C, d)[slot], keep, gates, T, K,
+                         x.dtype)
+        y = y + MoE._shared_tp(p, cfg, xt, None)
+        aux = MoE._aux_of(cfg, logits, probs, flat_e, keep, aux_axes)
+        return y.reshape(B, S, d), aux
 
-        logits = xt.float() @ p["router"]["w"].float()         # (T, E)
+    # ------------------------------------------------------------------
+    # The pieces every path shares, then the distributed paths: the
+    # per-rank programs of the reference's shard_map bodies, over the
+    # bound mesh's "model" axis.
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def _route_local(p, cfg, xt, capacity):
+        """Routing: the f32 router, top-k gates renormalised, each
+        assignment's rank in its expert's queue.  xt: (t, d) local."""
+        E, K = cfg.n_experts, cfg.top_k
+        t = xt.shape[0]
+        dev = xt.device
+        logits = xt.float() @ p["router"]["w"].float()
         probs = torch.softmax(logits, dim=-1)
-        gate_vals, expert_ids = torch.topk(probs, K, dim=-1)   # (T, K)
+        gate_vals, expert_ids = torch.topk(probs, K, dim=-1)
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
-
-        # ---- slot assignment without (T, E) one-hots ------------------
-        flat_e = expert_ids.reshape(-1)                        # (T*K,)
+        # ---- slot assignment without (t, E) one-hots ------------------
+        flat_e = expert_ids.reshape(-1)                        # (t*K,)
         # Priority: earlier tokens win capacity (GShard semantics).
         order = torch.argsort(flat_e, stable=True)             # group by expert
         sorted_e = flat_e[order]
@@ -97,42 +150,157 @@ class MoE:
         counts = torch.zeros(E, dtype=torch.long, device=dev).scatter_add_(
             0, flat_e, torch.ones_like(flat_e))
         starts = torch.cumsum(counts, 0) - counts
-        ranks_sorted = torch.arange(T * K, device=dev) - starts[sorted_e]
+        ranks_sorted = torch.arange(t * K, device=dev) - starts[sorted_e]
         ranks = torch.empty_like(ranks_sorted).scatter_(0, order,
                                                         ranks_sorted)
-        keep = ranks < C                                       # (T*K,)
+        keep = ranks < capacity
+        return logits, probs, gate_vals, flat_e, ranks, keep
 
-        slot = flat_e * C + torch.where(keep, ranks, 0)        # (T*K,)
-        token_idx = torch.arange(T, device=dev).repeat_interleave(K)
-        # Scatter tokens into the (E*C, d) buffer; a dropped assignment
-        # adds zeros to its expert's slot 0.
-        contrib = torch.where(keep[:, None], xt[token_idx], 0.0)
-        buf = torch.zeros((E * C, d), dtype=x.dtype, device=dev)
-        buf.index_add_(0, slot, contrib)
-        y_buf = _expert_ffn(p["experts"], buf.reshape(E, C, d), cfg.act)
+    @staticmethod
+    def _aux_of(cfg, logits, probs, flat_e, keep, axes):
+        """The aux terms, each mean taken over the token axes ``axes``
+        too (the reference's ``pmean``s: one all-reduce of the four means
+        side by side, over the ranks' count)."""
+        E, K = cfg.n_experts, cfg.top_k
+        t = probs.shape[0]
+        counts = torch.zeros(E, dtype=torch.long,
+                             device=flat_e.device).scatter_add_(
+            0, flat_e, torch.ones_like(flat_e))
+        means = torch.cat([probs.mean(0), counts.float() / (t * K),
+                           torch.logsumexp(logits, -1).square().mean()[None],
+                           (1.0 - keep.float().mean())[None]])
+        if axes:
+            means = dctx.all_reduce(means, axes) / dctx.axis_size(axes)
+        me, frac, z, drop = means.split([E, E, 1, 1])
+        return {"moe_lb_loss": E * torch.sum(frac * me),
+                "moe_z_loss": z[0], "moe_drop_frac": drop[0]}
 
-        # Combine: each kept assignment's output weighted by its gate,
-        # the K of a token added in k order onto zeros, as the
-        # reference's scatter-add does.
-        y_flat = y_buf.reshape(E * C, d)[slot]                 # (T*K, d)
-        w = torch.where(keep, gate_vals.reshape(-1), 0.0).to(x.dtype)
-        yk = (y_flat * w[:, None]).reshape(T, K, d)
-        y = torch.zeros((T, d), dtype=x.dtype, device=dev)
+    @staticmethod
+    def _shared_tp(p, cfg, xt, tp_axis):
+        """Shared experts (0 where there are none); with ``tp_axis`` ``p``
+        holds this rank's ``d_ff`` slice and the partial outputs are
+        summed over it."""
+        if "shared" not in p:
+            return 0.0
+        sh = p["shared"]
+        wg = sh["w_gate"]["w"].to(xt.dtype)
+        wu = sh["w_up"]["w"].to(xt.dtype)
+        wd = sh["w_down"]["w"].to(xt.dtype)
+        if cfg.act == "swiglu":
+            h = F.silu(xt @ wg) * (xt @ wu)
+        else:
+            h = act_fn("gelu")(xt @ wg)
+        y = h @ wd
+        return dctx.all_reduce(y, tp_axis) if tp_axis else y
+
+    @staticmethod
+    def _combine(y_flat, keep, gates, t: int, K: int, dtype):
+        """Each kept assignment's output weighted by its gate, the K of a
+        token added in k order onto zeros, as :meth:`_fwd_local` does."""
+        w = torch.where(keep, gates.reshape(-1), 0.0).to(dtype)
+        yk = (y_flat * w[:, None]).reshape(t, K, -1)
+        y = torch.zeros((t, yk.shape[-1]), dtype=dtype, device=y_flat.device)
         for k in range(K):
             y = y + yk[:, k]
+        return y
 
+    @staticmethod
+    def _token_axes():
+        """The data axes this rank's rows are split over (the bound "dp"
+        axes: the port's programs hold their own rows only)."""
+        dp_ax, tp_ax = dctx.activation_axes()
+        return dctx.as_axes(dp_ax), tp_ax
+
+    @staticmethod
+    def _fwd_ep(p: dict, cfg: ModelConfig, x: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+        """Expert parallelism: this rank's tokens (its rows, and its
+        slice of the sequence where ``S % tp == 0``) go by a
+        fixed-capacity all-to-all to the ranks that hold their experts,
+        through the grouped FFN on this rank's ``E // tp`` experts, and
+        back; the output is all-gathered over the sequence again."""
+        b_axes, tp_ax = MoE._token_axes()
+        B, S, d = x.shape
+        E, K = cfg.n_experts, cfg.top_k
+        m = dctx.tp_size()
+        E_loc = E // m
+        r = dctx.axis_index(tp_ax)
+        s_split = S % m == 0
+        if s_split:
+            S_loc = S // m
+            x = x[:, r * S_loc:(r + 1) * S_loc]
+        xt = x.reshape(-1, d)
+        t = xt.shape[0]
+        c_se = max(4, -(-int(t * K * cfg.capacity_factor / E) // 4) * 4)
+        dev = xt.device
+
+        logits, probs, gates, flat_e, ranks, keep = MoE._route_local(
+            p, cfg, xt, c_se)
+        dest = flat_e // E_loc
+        eslot = flat_e % E_loc
+        slot = dest * (E_loc * c_se) + eslot * c_se + \
+            torch.where(keep, ranks, 0)
+        token_idx = torch.arange(t, device=dev).repeat_interleave(K)
+        contrib = torch.where(keep[:, None], xt[token_idx], 0.0)
+        send = torch.zeros((m * E_loc * c_se, d), dtype=xt.dtype,
+                           device=dev).index_add(0, slot, contrib)
+        recv = dctx.all_to_all(send, tp_ax)
+        buf = recv.reshape(m, E_loc, c_se, d).transpose(0, 1)
+        buf = buf.reshape(E_loc, m * c_se, d)
+        mine = {k: w[r * E_loc:(r + 1) * E_loc]
+                for k, w in p["experts"].items()}
+        y_buf = _expert_ffn(mine, buf, cfg.act)
+        back = y_buf.reshape(E_loc, m, c_se, d).transpose(0, 1)
+        ret = dctx.all_to_all(back.reshape(m * E_loc * c_se, d), tp_ax)
+        y = MoE._combine(ret[slot], keep, gates, t, K, xt.dtype)
+        y = y + MoE._shared_tp(p, cfg, xt, None)
+        aux = MoE._aux_of(cfg, logits, probs, flat_e, keep,
+                          b_axes + ((tp_ax,) if s_split else ()))
+        y = y.reshape(x.shape)
+        if s_split:
+            y = dctx.all_gather(y, tp_ax, dim=1)
+        return y, aux
+
+    @staticmethod
+    def _fwd_tp(p: dict, cfg: ModelConfig, x: torch.Tensor
+                ) -> tuple[torch.Tensor, dict]:
+        """Experts too few to shard: every rank routes its tokens, runs
+        its ``d_ff`` slice of every expert (and of the shared experts),
+        and the outputs are summed over the ``model`` axis."""
+        b_axes, tp_ax = MoE._token_axes()
+        B, S, d = x.shape
+        E, K = cfg.n_experts, cfg.top_k
+        m = dctx.tp_size()
+        r = dctx.axis_index(tp_ax)
+        xt = x.reshape(-1, d)
+        t = xt.shape[0]
+        C = max(8, -(-int(t * K * cfg.capacity_factor / E) // 8) * 8)
+        dev = xt.device
+
+        def cols(w, dim):
+            n = w.shape[dim] // m
+            return w.narrow(dim, r * n, n)
+
+        ex = p["experts"]
+        mine = {"w_gate": cols(ex["w_gate"], 2), "w_up": cols(ex["w_up"], 2),
+                "w_down": cols(ex["w_down"], 1)}
+        logits, probs, gates, flat_e, ranks, keep = MoE._route_local(
+            p, cfg, xt, C)
+        slot = flat_e * C + torch.where(keep, ranks, 0)
+        token_idx = torch.arange(t, device=dev).repeat_interleave(K)
+        contrib = torch.where(keep[:, None], xt[token_idx], 0.0)
+        buf = torch.zeros((E * C, d), dtype=xt.dtype,
+                          device=dev).index_add(0, slot, contrib)
+        y_buf = _expert_ffn(mine, buf.reshape(E, C, d), cfg.act)
+        y = MoE._combine(y_buf.reshape(E * C, d)[slot], keep, gates, t, K,
+                         xt.dtype)
+        y = dctx.all_reduce(y, tp_ax)
         if "shared" in p:
             sh = p["shared"]
-            if cfg.act == "swiglu":
-                h = F.silu(dense(sh["w_gate"], xt)) * dense(sh["w_up"], xt)
-            else:
-                h = act_fn("gelu")(dense(sh["w_gate"], xt))
-            y = y + dense(sh["w_down"], h)
-
-        # ---- aux losses ----------------------------------------------
-        me = probs.mean(0)                                     # (E,)
-        frac = counts.float() / (T * K)
-        aux = {"moe_lb_loss": E * torch.sum(frac * me),
-               "moe_z_loss": torch.logsumexp(logits, -1).square().mean(),
-               "moe_drop_frac": 1.0 - keep.float().mean()}
+            local = {"shared": {
+                "w_gate": {"w": cols(sh["w_gate"]["w"], 1)},
+                "w_up": {"w": cols(sh["w_up"]["w"], 1)},
+                "w_down": {"w": cols(sh["w_down"]["w"], 0)}}}
+            y = y + MoE._shared_tp(local, cfg, xt, tp_ax)
+        aux = MoE._aux_of(cfg, logits, probs, flat_e, keep, b_axes)
         return y.reshape(B, S, d), aux

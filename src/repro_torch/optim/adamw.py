@@ -71,9 +71,13 @@ def global_norm(tree: PyTree) -> torch.Tensor:
                           for x in leaves))
 
 
-def clip_by_global_norm(tree: PyTree, max_norm: float
+def clip_by_global_norm(tree: PyTree, max_norm: float,
+                        norm: torch.Tensor | None = None
                         ) -> tuple[PyTree, torch.Tensor]:
-    g = global_norm(tree)
+    """``tree`` scaled to at most ``max_norm``; ``norm`` is its global norm
+    where the caller has it (a sharded tree's, summed over the ranks that
+    hold distinct blocks), else :func:`global_norm` of ``tree``."""
+    g = global_norm(tree) if norm is None else norm
     scale = torch.clamp(max_norm / torch.clamp(g, min=1e-9), max=1.0)
     return tree_map(lambda x: x * scale.to(x.dtype), tree), g
 
@@ -90,8 +94,11 @@ def _decay_mask(path: tuple) -> bool:
 
 
 def adamw_update(cfg: AdamWConfig, params: PyTree, grads: PyTree,
-                 state: PyTree) -> tuple[PyTree, PyTree, dict]:
-    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip)
+                 state: PyTree, *, grad_norm: torch.Tensor | None = None
+                 ) -> tuple[PyTree, PyTree, dict]:
+    """One AdamW step; ``grad_norm`` is the gradients' global norm where
+    the caller computed it over blocks held on several ranks."""
+    grads, gnorm = clip_by_global_norm(grads, cfg.grad_clip, grad_norm)
     step = state["step"] + 1
     stepf = step.float()
     lr = cosine_schedule(cfg, stepf)

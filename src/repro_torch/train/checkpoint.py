@@ -18,8 +18,12 @@
 Leaf keys are the tree paths joined by "/" (dict keys in sorted order,
 as the reference's).  :func:`restore_checkpoint` casts each leaf to its
 target's dtype and device; it finds a leaf by its key, so a target may
-leave out subtrees (``{"params": p, "opt": None}``).  Restoring onto a
-different sharding waits for the port of ``dist`` (ROADMAP §1 item 5).
+leave out subtrees (``{"params": p, "opt": None}``).  With
+``shardings`` (a tree of :class:`repro_torch.dist.sharding.NamedSharding`
+matching the target) each leaf comes back as a DTensor on that mesh,
+built from this rank's block of the saved array: a checkpoint saved on
+one mesh restores onto another (elastic restart).  DTensor leaves are
+saved whole (every rank gathers them; rank 0 writes).
 """
 
 from __future__ import annotations
@@ -47,8 +51,30 @@ def _dtype_name(v) -> str:
     return str(np.asarray(v).dtype)
 
 
+def _is_dtensor(v) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(v, DTensor)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _host_copy(x):
+    """A consistent host snapshot of one leaf; a DTensor is gathered whole
+    (a collective: every rank calls it)."""
+    if isinstance(x, torch.Tensor):
+        if _is_dtensor(x):
+            x = x.full_tensor()
+        return x.detach().to("cpu", copy=True)
+    return np.asarray(x)
+
+
 def _to_numpy(v) -> np.ndarray:
     if isinstance(v, torch.Tensor):
+        if _is_dtensor(v):
+            v = v.full_tensor()
         t = v.detach().cpu()
         if t.dtype == torch.bfloat16:
             t = t.float()              # npz-portable; dtype in manifest
@@ -108,15 +134,29 @@ def _restore_leaf(arr: np.ndarray, tgt, dtype_name: str):
     return t.to(getattr(torch, dtype_name))
 
 
+def _restore_sharded(arr: np.ndarray, tgt, dtype_name: str, sharding):
+    """A DTensor placed by ``sharding`` from this rank's block of the
+    saved array, cut on the host before it moves to the device."""
+    from torch.distributed.tensor import DTensor
+    from ..dist.sharding import local_block
+    dtype = (tgt.dtype if isinstance(tgt, torch.Tensor)
+             else getattr(torch, dtype_name))
+    mesh, pls = sharding.mesh, sharding.placements
+    device = (torch.device("cuda", torch.cuda.current_device())
+              if mesh.device_type == "cuda" else torch.device("cpu"))
+    whole = torch.from_numpy(arr)
+    block = local_block(whole, mesh, pls).to(device=device, dtype=dtype)
+    return DTensor.from_local(block.contiguous(), mesh, pls,
+                              shape=whole.shape, stride=whole.stride())
+
+
 def restore_checkpoint(ckpt_dir: str, target: PyTree, step: int | None = None,
                        shardings: PyTree | None = None, host_id: int = 0
                        ) -> tuple[PyTree, dict]:
     """Restore into the structure of ``target`` (leaves cast to the
-    target's dtype and device) -> (tree, the manifest's ``extra``)."""
-    if shardings is not None:
-        raise NotImplementedError(
-            "restore_checkpoint: resharding waits for the port of dist "
-            "(ROADMAP §1 item 5); pass shardings=None")
+    target's dtype and device) -> (tree, the manifest's ``extra``).
+    ``shardings``: a tree of ``NamedSharding`` matching ``target``; each
+    leaf is then a DTensor holding this rank's block."""
     if step is None:
         step = latest_step(ckpt_dir)
         if step is None:
@@ -131,9 +171,17 @@ def restore_checkpoint(ckpt_dir: str, target: PyTree, step: int | None = None,
     if missing:
         raise KeyError(f"checkpoint {d} has no leaves {missing[:4]} "
                        f"({len(missing)} of the target's {len(flat)})")
+    shards = ([s for _, s in flatten(shardings)] if shardings is not None
+              else [None] * len(flat))
+    if len(shards) != len(flat):
+        raise ValueError(f"shardings has {len(shards)} leaves, the target "
+                         f"{len(flat)}")
     with np.load(os.path.join(d, f"shard_{host_id}.npz")) as data:
         leaves = [_restore_leaf(data[f"leaf_{index[k][0]}"], tgt, index[k][1])
-                  for k, tgt in flat]
+                  if shd is None else
+                  _restore_sharded(data[f"leaf_{index[k][0]}"], tgt,
+                                   index[k][1], shd)
+                  for (k, tgt), shd in zip(flat, shards)]
     return unflatten(target, leaves), manifest["extra"]
 
 
@@ -150,11 +198,10 @@ class AsyncCheckpointer:
              ) -> None:
         self.wait()
         # The device -> host copy on the caller's thread (a consistent
-        # snapshot), the write on the background thread.
-        host_tree = tree_map(
-            lambda x: (x.detach().to("cpu", copy=True)
-                       if isinstance(x, torch.Tensor) else np.asarray(x)),
-            tree)
+        # snapshot), the write on the background thread, by rank 0 only.
+        host_tree = tree_map(_host_copy, tree)
+        if _rank() != 0:
+            return
 
         def run():
             save_checkpoint(self.ckpt_dir, step, host_tree, extra)

@@ -12,8 +12,11 @@ deployment needs:
   cluster scheduler can reschedule the job — which then auto-resumes,
 * NaN/inf loss guard: skip the update (grads discarded) and count it;
   abort if the guard trips persistently,
-* elastic restart: the checkpoint stores global logical shapes; restoring
-  onto a changed mesh (``shardings``) waits for the port of ``dist``.
+* elastic restart: the checkpoint stores global logical shapes and is
+  restored onto whatever mesh ``shardings`` describes.  With
+  ``shardings`` the state between steps is this rank's blocks, plain
+  tensors (what :func:`repro_torch.train.sharded.make_sharded_train_step`
+  takes): a restore is cut to them, and a save wraps them as DTensors.
 
 Straggler note: on real fleets the per-step all-reduce acts as a
 barrier; mitigation here is (a) deterministic host-sharded data (any
@@ -28,12 +31,13 @@ import os
 import tempfile
 import time
 from dataclasses import dataclass, field
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 
 from ..data.pipeline import SyntheticLM
 from .checkpoint import AsyncCheckpointer, latest_step, restore_checkpoint
+from .sharded import as_dtensors, local_blocks
 
 __all__ = ["LoopConfig", "TrainLoop"]
 
@@ -57,19 +61,28 @@ class TrainLoop:
     data: SyntheticLM
     cfg: LoopConfig
     log_fn: Callable[[int, dict], None] = lambda s, m: None
+    # {"params", "opt"} NamedShardings when the state is this rank's blocks
+    shardings: Any = None
 
     nan_skips: int = 0
 
-    def resume_or_init(self, params, opt_state, shardings=None):
+    def resume_or_init(self, params, opt_state):
         """Returns (params, opt_state, start_step)."""
         step = latest_step(self.cfg.ckpt_dir)
         if step is None:
             return params, opt_state, 0
         tree = {"params": params, "opt": opt_state}
         tree, extra = restore_checkpoint(self.cfg.ckpt_dir, tree,
-                                         shardings=shardings)
+                                         shardings=self.shardings)
+        if self.shardings is not None:
+            tree = local_blocks(tree)
         self.data.load_state_dict(extra.get("data", {"step": 0}))
         return tree["params"], tree["opt"], int(extra.get("step", step))
+
+    def _saved(self, params, opt_state) -> dict:
+        tree = {"params": params, "opt": opt_state}
+        return (tree if self.shardings is None
+                else as_dtensors(tree, self.shardings))
 
     def run(self, params, opt_state, start_step: int = 0) -> tuple:
         ckpt = AsyncCheckpointer(self.cfg.ckpt_dir, keep=self.cfg.keep)
@@ -99,11 +112,10 @@ class TrainLoop:
             if step % self.cfg.log_every == 0:
                 self.log_fn(step, metrics)
             if self.cfg.ckpt_every and (step + 1) % self.cfg.ckpt_every == 0:
-                ckpt.save(step + 1, {"params": params, "opt": opt_state},
+                ckpt.save(step + 1, self._saved(params, opt_state),
                           extra={"step": step + 1,
                                  "data": self.data.state_dict()})
-        ckpt.save(self.cfg.total_steps,
-                  {"params": params, "opt": opt_state},
+        ckpt.save(self.cfg.total_steps, self._saved(params, opt_state),
                   extra={"step": self.cfg.total_steps,
                          "data": self.data.state_dict()})
         ckpt.wait()

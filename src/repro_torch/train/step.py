@@ -26,7 +26,7 @@ from ..pytree import flatten, tree_map, unflatten
 
 __all__ = ["cross_entropy", "chunked_cross_entropy", "cast_matmul_params",
            "loss_fn", "make_train_step", "make_eval_step",
-           "init_train_state"]
+           "init_train_state", "accumulate_grads"]
 
 PyTree = Any
 
@@ -172,28 +172,36 @@ def make_train_step(cfg: ModelConfig, opt: AdamWConfig, *,
     def step(params, opt_state, batch):
         device = flatten(params)[0][1].device
         batch = _to_device(batch, device)
-        if accum == 1:
-            grads, metrics = _grads_of(params, cfg, batch, remat=remat,
-                                       unroll=unroll)
-        else:
-            acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                 device=p.device), params)
-            ms = []
-            for i in range(accum):
-                mb = {k: v.reshape((accum, v.shape[0] // accum)
-                                   + v.shape[1:])[i]
-                      for k, v in batch.items()}
-                g, m = _grads_of(params, cfg, mb, remat=remat, unroll=unroll)
-                acc = tree_map(lambda a, b: a + b.float(), acc, g)
-                ms.append(m)
-            grads = tree_map(lambda g: g / accum, acc)
-            metrics = {k: torch.stack([m[k] for m in ms]).mean(0)
-                       for k in ms[0]}
+        grads, metrics = accumulate_grads(params, cfg, batch, accum=accum,
+                                          remat=remat, unroll=unroll)
         params, opt_state, opt_metrics = adamw_update(
             opt, params, grads, opt_state)
         return params, opt_state, {**metrics, **opt_metrics}
 
     return step
+
+
+def accumulate_grads(params: PyTree, cfg: ModelConfig, batch: dict, *,
+                     accum: int = 1, remat: bool = True,
+                     unroll: bool = False) -> tuple[PyTree, dict]:
+    """The gradients of the loss on ``batch`` (tensors on the parameters'
+    device) and its metrics; with ``accum > 1`` the batch's leading dim
+    is split into microbatches whose gradients are accumulated in f32,
+    one microbatch at a time, and whose metrics are averaged."""
+    if accum == 1:
+        return _grads_of(params, cfg, batch, remat=remat, unroll=unroll)
+    acc = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                         device=p.device), params)
+    ms = []
+    for i in range(accum):
+        mb = {k: v.reshape((accum, v.shape[0] // accum) + v.shape[1:])[i]
+              for k, v in batch.items()}
+        g, m = _grads_of(params, cfg, mb, remat=remat, unroll=unroll)
+        acc = tree_map(lambda a, b: a + b.float(), acc, g)
+        ms.append(m)
+    grads = tree_map(lambda g: g / accum, acc)
+    return grads, {k: torch.stack([m[k] for m in ms]).mean(0)
+                   for k in ms[0]}
 
 
 def make_eval_step(cfg: ModelConfig):

@@ -198,7 +198,7 @@ def test_checkpoint_bit_exact_and_casts_to_target(tmp_path):
     assert torch.equal(part["params"]["layers"][0]["w"],
                        t["params"]["layers"][0]["w"].float())
     assert part["params"]["layers"][0]["scale"].dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="dist"):
+    with pytest.raises(ValueError, match="shardings has 0 leaves"):
         restore_checkpoint(d, t, shardings={})
     with pytest.raises(KeyError):
         restore_checkpoint(d, {"params": {"nope": torch.zeros(1)}})

@@ -531,8 +531,8 @@ def test_train_cli_and_meshes(tmp_path, capsys):
                        "--ckpt-every", "0"]) == 0
     assert "done: loss" in capsys.readouterr().out
     assert os.path.exists(tmp_path / "LATEST")
-    for mesh in ("single", "multi"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    for mesh, world in (("single", 256), ("multi", 512)):
+        with pytest.raises(ValueError, match=f"world of {world} ranks"):
             train("qwen1.5-0.5b", steps=1, mesh_kind=mesh, device="cpu")
     with pytest.raises(ValueError):
         train("qwen1.5-0.5b", steps=1, mesh_kind="pod", device="cpu")
