@@ -225,14 +225,39 @@ no phase catches its own failure:
               the sharded step, its losses bit-equal to the bare
               ``make_train_step``'s from the same seed, 97 RMSNorm
               launches a step; the bare step and the sharded one on
-              the state's blocks in turns for 5 steps, bit-equal
-              losses, ms per step of both; §21's resumed step-20
+              the state's blocks (the per-layer gather hook,
+              ``tp_dense``) in turns for 5 steps: bit-equal losses and
+              parameters, no collective sent, ms per step of both;
+              §21's resumed step-20
               checkpoint restored with ``shardings=`` onto the mesh,
               every leaf a DTensor bit-equal to the plain restore; the
               dry run of qwen's four cells on the 16 x 16 description
               (``python -m repro_torch.launch.dryrun``, a child process
               started beside §21) and their roofline rows with the
-              H100's ``HW``.
+              H100's ``HW``;
+23. tp      — the rank programs that hold only their blocks: (a) on
+              the world-1 NCCL mesh, qwen1.5-0.5b at full width (its
+              sharded train steps are §22's), 32 decode steps (8 prompt
+              tokens replayed, 24 greedy, B 2, bf16) on the weights' and
+              the cache's blocks (``cache_specs``) bit-equal to the bare
+              ``decode_step``'s, 24 decode-attention and 49 RMSNorm
+              launches a step, no collective sent, and ms a step of both
+              after that warm run, in turns; (b)
+              decode attention's log-sum-exp output at qwen's heads (f32
+              and bf16): caches of L 4,096 and 32,768 slots cut into 2
+              and 4 slot blocks (the last block empty, a second row of
+              length 0), each block launched with ``lse`` and merged
+              (``merge_partials``), against one launch on the whole
+              cache and the plain version (f32 2e-5, bf16 2e-2; -inf and
+              zeros where empty), and device µs per launch with and
+              without ``lse`` at L 512 and 32,768 (CUDA graph); (c) where
+              the machine has two cards, the decode (40 prompt tokens, 24
+              greedy, a 64-slot cache split over the cards) and one train
+              step on a 1 x 2 ``model`` mesh over NCCL against one card
+              (f32 logits within 1e-4 of their largest, the same tokens;
+              each leaf's f32 gradient within 1e-4 of its norm; with the
+              bf16 cast on, the step's loss 1e-3 and gradient norm 1e-2
+              relative), or a line saying it ran on one card.
 
 §4 also times flash attention and SDPA at qwen's B 1 x S 32768.  §9 also
 serves the three traced archs with ``respect_deps`` sliced and sliced
@@ -242,7 +267,8 @@ slice rounds, modelled time and cache counters identical.
 
 The kernels' record counts each kernel's launches on the main paths:
 the decode steps of §5, §16, §18, §19 and §20, the prefills of §7 and
-§18, §21's 20 straight train steps and §22's 3 on the host mesh.
+§18, §21's 20 straight train steps, §22's 3 on the host mesh and §23's
+32 decode steps.
 The last lines are the kernels' JSON record, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes a
 fuller JSON report (every timing repeat, the profiles' top kernels).
@@ -256,6 +282,7 @@ import atexit
 import gc
 import itertools
 import json
+import math
 import os
 import re
 import shutil
@@ -333,6 +360,37 @@ def time_ms(fn, n: int = 200, warm: int = 20, repeats: int = 5,
     if runs_out is not None:
         runs_out.extend(runs)
     return float(np.median(runs))
+
+
+def graph_us(fn, n: int = 50, rotate=None) -> float:
+    """Device µs per call of ``fn`` from CUDA events around the replay
+    of a CUDA graph of ``n`` calls: the launches back to back, with no
+    host time between them and no profiler session.  With ``rotate``
+    (a list of argument tuples) call i is ``fn(*rotate[i % len])``
+    and every call's output is kept until the replay ends, so no call
+    finds its input or output in L2 once the tuples span more than
+    it."""
+    args = rotate or [()]
+    outs = []
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            y = fn(*args[i % len(args)])
+            if rotate:
+                outs.append(y)
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) * 1e3 / n
 
 
 def bound(n_bytes: float, n_ops: float, dtype) -> tuple[float, str]:
@@ -688,7 +746,7 @@ def dist_phase(report: dict, dev, ckpt_dir: Path, ckpt_step: int,
     import torch.distributed as tdist
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLM
-    from repro_torch.dist.context import act_ctx
+    from repro_torch.dist.context import act_ctx, count_collectives
     from repro_torch.kernels import launch_counts, reset_launch_counts
     from repro_torch.launch import make_host_mesh
     from repro_torch.launch.train import train
@@ -830,29 +888,39 @@ def dist_phase(report: dict, dev, ckpt_dir: Path, ckpt_step: int,
     batches = [data_t.next_batch() for _ in range(5)]
     p0, o0 = init_train_state(cfg_t, seed=0, device=dev)
 
-    # the bare step and the sharded one (the step train() runs, on the
-    # state's blocks) in turns on the same 5 batches, each synchronised
+    # the bare step and the sharded one (the step train() runs: the
+    # per-layer gather hook and tp_dense on the state's blocks) in turns
+    # on the same 5 batches, each synchronised; at world 1 every
+    # collective is the identity, so none is sent and every parameter
+    # ends bit-equal to the bare step's
     runs = {"bare": [make_train_step(cfg_t, opt_t), p0, o0],
             "sharded": [make_sharded_train_step(cfg_t, opt_t, mesh),
                         *shard_train_state(p0, o0, mesh)]}
     losses = {k: [] for k in runs}
     step_ms = {k: [] for k in runs}
-    for b in batches:
-        for k, r in runs.items():
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            r[1], r[2], m = r[0](r[1], r[2], b)
-            losses[k].append(float(m["loss"]))
-            step_ms[k].append((time.perf_counter() - t0) * 1e3)
+    with count_collectives() as coll:
+        for b in batches:
+            for k, r in runs.items():
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                r[1], r[2], m = r[0](r[1], r[2], b)
+                losses[k].append(float(m["loss"]))
+                step_ms[k].append((time.perf_counter() - t0) * 1e3)
+    same = all(torch.equal(a, w) for (_, a), (_, w) in
+               zip(flatten(runs["sharded"][1]), flatten(runs["bare"][1])))
     del runs
     bare_losses, bare_ms, sharded_ms = (losses["bare"], step_ms["bare"],
                                         step_ms["sharded"])
-    require(losses["sharded"] == bare_losses,
-            "the sharded step's losses, in turns, are not the bare step's "
-            "bits")
+    require(losses["sharded"] == bare_losses and same and not coll,
+            f"the sharded step, in turns: losses {losses['sharded']} against "
+            f"the bare step's {bare_losses}, parameters bit-equal {same}, "
+            f"collectives sent {dict(coll)}")
     print(f"[dist] qwen1.5-0.5b full, B 8 x S 1024, 3 steps: train("
           f"mesh_kind='host') losses {sharded['losses']}, the bare "
           f"make_train_step's {bare_losses[:3]}; launches {sharded_counts}")
+    print(f"[dist]   5 steps in turns: the sharded step's losses and "
+          f"parameters bit-equal to the bare step's: True; collectives "
+          f"sent {dict(coll)}")
     print(f"[dist]   ms per step (synchronised, in turns): bare "
           f"{[round(v, 1) for v in bare_ms]}, sharded "
           f"{[round(v, 1) for v in sharded_ms]}; medians "
@@ -862,7 +930,8 @@ def dist_phase(report: dict, dev, ckpt_dir: Path, ckpt_step: int,
             "train()'s losses are not the bare step's bits")
     d_rep["train"] = {"sharded_losses": sharded["losses"],
                       "bare_losses": bare_losses, "bare_ms": bare_ms,
-                      "sharded_ms": sharded_ms, "launches": sharded_counts}
+                      "sharded_ms": sharded_ms, "launches": sharded_counts,
+                      "params_equal": same}
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -927,6 +996,407 @@ def dist_phase(report: dict, dev, ckpt_dir: Path, ckpt_step: int,
     print(f"[dist] §22 took {d_rep['phase_s']:.1f} s; the script "
           f"{time.perf_counter() - T_START:.1f} s so far")
     return sharded_counts
+
+
+#: §23(c): the decode's prompt tokens replayed and greedy steps after
+#: them, and its cache slots (the slots, not head_dim 64, are the cache's
+#: largest dim, so they split over "model"; the replay fills the second
+#: card's half)
+TWO_CARD_DECODE = (40, 24, 64)
+
+
+def _tp_blocks(tree, specs, mesh):
+    """This rank's blocks of ``tree`` placed by ``specs`` (contiguous)."""
+    from repro_torch.dist.sharding import local_block, placements
+    from repro_torch.pytree import flatten, unflatten
+    return unflatten(tree, [
+        local_block(t, mesh, placements(mesh, s)).contiguous()
+        for (_, t), s in zip(flatten(tree), specs)])
+
+
+def _greedy(step, prompt, n_new: int):
+    """``prompt`` (B, P) replayed through ``step(tok, pos) -> logits``,
+    then ``n_new`` greedy steps: every step's logits and the new tokens."""
+    logits, new = [], []
+    tok = prompt[:, 0]
+    for pos in range(prompt.shape[1] + n_new):
+        lg = step(tok, pos)
+        logits.append(lg)
+        if pos + 1 < prompt.shape[1]:
+            tok = prompt[:, pos + 1]
+        else:
+            tok = lg.argmax(-1)
+            new.append(tok)
+    return torch.stack(logits), torch.stack(new)
+
+
+def two_card_rank(rank: int, store: str, out_dir: str) -> None:
+    """§23(c) on rank ``rank`` of a 1 x 2 ("data", "model") mesh over NCCL
+    on cards 0 and 1: qwen1.5-0.5b at full width in f32 (TF32 off) on
+    this rank's blocks, a decode of ``TWO_CARD_DECODE`` over a slot-split
+    cache, one sharded train step (bf16 cast on), and its gradients in
+    f32 (the cast off); each rank also runs those gradients on the whole
+    weights with no mesh, and rank 0 the decode and the step.  Writes
+    ``rank{rank}.json`` to
+    ``out_dir``: per leaf, the squared error of this rank's gradient
+    block against the same block of one card's, the ranks holding a copy
+    of that block, and the leaf's squared norm."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    sys.path.insert(0, str(SRC))
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist import context as dctx
+    from repro_torch.dist.context import act_ctx, count_collectives
+    from repro_torch.dist.sharding import (cache_specs, gather_hook,
+                                           local_block, param_specs,
+                                           placements, spec_leaves)
+    from repro_torch.models import transformer as T
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.pytree import flatten
+    from repro_torch.train import (init_train_state, make_sharded_train_step,
+                                   make_train_step, shard_train_state)
+    from repro_torch.train import step as PS
+    from repro_torch.train.sharded import _replicas, sharded_grads
+    from repro_torch.train.step import _to_device, accumulate_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_num_threads(2)
+    torch.cuda.set_device(rank)
+    dev = torch.device("cuda", rank)
+    tdist.init_process_group("nccl", init_method=f"file://{store}",
+                             rank=rank, world_size=2)
+    mesh = init_device_mesh("cuda", (1, 2), mesh_dim_names=("data", "model"))
+    res: dict = {}
+    cfg = get_config("qwen1.5-0.5b", "full").replace(dtype="float32")
+    n_prompt, n_new, slots = TWO_CARD_DECODE
+    params = T.init(cfg, seed=0, device=dev, param_dtype=torch.float32)
+    stree = param_specs(params, mesh, mode="serve")
+    blocks = _tp_blocks(params, spec_leaves(params, stree), mesh)
+    prompt = torch.randint(0, cfg.vocab, (2, n_prompt),
+                           generator=torch.Generator().manual_seed(3)).to(dev)
+    cache = T.init_cache(cfg, 2, slots, dtype=torch.float32, device=dev)
+    ctree = cache_specs(cache, mesh)
+    cblocks = _tp_blocks(cache, spec_leaves(cache, ctree), mesh)
+    res["cache_block"] = list(cblocks["layers"][0]["k"].shape)
+    calls: list = []
+    t0 = time.perf_counter()
+    with act_ctx(dp="data", tp="model", mesh=mesh), torch.no_grad(), \
+            count_collectives(calls):
+        lg, tok = _greedy(lambda t, pos: T.decode_step(
+            blocks, cfg, t, cblocks, pos, gather=gather_hook(stree),
+            cache_specs=ctree)[0], prompt, n_new)
+    res["decode_s"] = time.perf_counter() - t0
+    shapes = {tuple(t.shape) for _, t in flatten(params)}
+    if rank == 0:
+        whole = T.init_cache(cfg, 2, slots, dtype=torch.float32, device=dev)
+        with torch.no_grad():
+            lg1, tok1 = _greedy(lambda t, pos: T.decode_step(
+                params, cfg, t, whole, pos)[0], prompt, n_new)
+        res["decode_max_abs_err"] = float((lg - lg1).abs().max())
+        res["decode_logits_max"] = float(lg1.abs().max())
+        res["tokens_equal"] = bool(torch.equal(tok, tok1))
+        del whole
+    del params, blocks, cache, cblocks
+
+    opt = AdamWConfig(warmup_steps=5, total_steps=3)
+    batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=1024,
+                                   global_batch=8)).next_batch()
+    tcfg = cfg.replace(dtype="bfloat16")
+    p0, o0 = init_train_state(tcfg, seed=0, device=dev)
+    specs = spec_leaves(p0, param_specs(p0, mesh))
+    with count_collectives(calls):
+        _, _, m = make_sharded_train_step(tcfg, opt, mesh)(
+            *shard_train_state(p0, o0, mesh), batch)
+    res["train"] = {k: float(m[k]) for k in ("loss", "grad_norm")}
+    if rank == 0:
+        _, _, m1 = make_train_step(tcfg, opt)(p0, o0, batch)
+        res["train_one_card"] = {k: float(m1[k])
+                                 for k in ("loss", "grad_norm")}
+    # the step's gradients with the bf16 cast off (this process only):
+    # in bf16 a leaf whose gradient cancels over the tokens (k's bias,
+    # which softmax all but ignores) keeps only the two cards' roundings
+    PS.cast_matmul_params = lambda params, dtype=None: params
+    batch = _to_device(batch, dev)
+    with count_collectives(calls), \
+            act_ctx(dp="data", tp="model", mesh=mesh):
+        gl, _ = sharded_grads(cfg, mesh, specs, _tp_blocks(p0, specs, mesh),
+                              batch)
+    res["weight_gathers_over_model"] = sum(
+        c[0] == "all-gather" and c[1] == "model" and c[2] in shapes
+        for c in calls)
+    g1, _ = accumulate_grads(p0, cfg, batch)
+    sizes = dctx.mesh_axes(mesh)
+    res["grads"] = {
+        "/".join(map(str, k)): {
+            "err2": float((g - local_block(w, mesh, placements(mesh, s)))
+                          .double().square().sum()),
+            "copies": _replicas(s, sizes),
+            "norm2": float(w.double().square().sum())}
+        for (k, w), g, s in zip(flatten(g1), gl, specs)}
+    Path(out_dir, f"rank{rank}.json").write_text(json.dumps(res))
+    tdist.barrier()
+    tdist.destroy_process_group()
+
+
+def two_cards(timeout_s: float = 600) -> dict:
+    """Runs :func:`two_card_rank` on two processes and returns rank 0's
+    record with the worst leaf's gradient error over its norm, holding
+    it to §23(c)'s bounds: the decode's logits within 1e-4 of their
+    largest magnitude and the same tokens; in f32, each leaf's gradient
+    within 1e-4 of its norm (the two-rank CPU tests' 5e-6 at smoke size,
+    widened for full width's longer sums and the card's GEMM orders);
+    with the bf16 cast on (each card rounds its own products) the train
+    step's loss within 1e-3 and its gradient norm within 1e-2
+    (relative); no weight all-gathered over "model"."""
+    import torch.multiprocessing as tmp
+    d = Path(tempfile.mkdtemp(prefix="chip_smoke_two_"))
+    try:
+        ctx = tmp.start_processes(two_card_rank, args=(
+            str(d / "store"), str(d)), nprocs=2, join=False,
+            start_method="spawn")
+        deadline = time.monotonic() + timeout_s
+        done = False
+        try:
+            while not done and time.monotonic() < deadline:
+                done = ctx.join(timeout=max(deadline - time.monotonic(), 1))
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.kill()
+                p.join(5)
+        require(done, f"§23(c): the two ranks did not finish in "
+                f"{timeout_s:.0f} s")
+        r0, r1 = (json.loads((d / f"rank{r}.json").read_text())
+                  for r in range(2))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    # a leaf's error over both ranks' blocks, each block counted once
+    ratio = {k: math.sqrt(sum(r["grads"][k]["err2"] / r["grads"][k]["copies"]
+                              for r in (r0, r1))
+                          / max(g["norm2"], 1e-300))
+             for k, g in r0["grads"].items()}
+    worst = max(ratio, key=ratio.get)
+    r0["grad_worst_leaf"], r0["grad_worst_ratio"] = worst, ratio[worst]
+    tr, tr1 = r0["train"], r0["train_one_card"]
+    require(r0["tokens_equal"] and r0["decode_max_abs_err"]
+            <= 1e-4 * r0["decode_logits_max"],
+            f"§23(c) decode against one card: {r0}")
+    require(ratio[worst] <= 1e-4,
+            f"§23(c) f32 gradients against one card: leaf {worst} off by "
+            f"{ratio[worst]:.3e} of its norm (bound 1e-4)")
+    require(abs(tr["loss"] - tr1["loss"]) <= 1e-3 * abs(tr1["loss"])
+            and abs(tr["grad_norm"] - tr1["grad_norm"])
+            <= 1e-2 * abs(tr1["grad_norm"]) and tr == r1["train"],
+            f"§23(c) train step against one card: {r0['train']}, "
+            f"{r1['train']}, {tr1}")
+    require(r0["weight_gathers_over_model"] == 0
+            and r1["weight_gathers_over_model"] == 0,
+            "§23(c): a weight was all-gathered over model")
+    del r0["grads"]
+    return r0
+
+
+def tp_phase(report: dict, dev) -> dict:
+    """§23: the rank programs that hold only their blocks.  (a) On the
+    world-1 NCCL mesh, qwen1.5-0.5b at full width (its sharded train
+    steps are §22's): 32 decode steps (8 prompt tokens replayed, 24
+    greedy) on the weights' blocks and the cache's (``cache_specs``)
+    through the per-layer gather hook against the bare ``decode_step``:
+    the same bits, and no collective sent; then ms a step of both, in
+    turns, each going first in half of them.  (b) Decode attention's log-sum-exp output at qwen's heads: a
+    cache of L 4,096 and 32,768 slots cut into 2 and 4 slot blocks (the
+    last block empty, and a second row of length 0), each block launched
+    with ``lse``, merged, against one launch on the whole cache and
+    against the plain version (f32 2e-5, bf16 2e-2); device µs per
+    launch with and without ``lse`` at L 512 and 32,768.  (c) The decode
+    and one train step on a 1 x 2 mesh over NCCL against one card, where
+    the machine has two cards.  Returns the launches of (a)'s decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import act_ctx, count_collectives
+    from repro_torch.dist.sharding import cache_specs, gather_hook, param_specs
+    from repro_torch.kernels import (decode_attention, decode_attention_plain,
+                                     launch_counts, reset_launch_counts)
+    from repro_torch.kernels.decode_attention import merge_partials
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.models import transformer as T
+    t23 = time.perf_counter()
+    rep: dict = {}
+    mesh = make_host_mesh(dev.type)
+    cfg = get_config("qwen1.5-0.5b", "full")
+
+    # (a) decode: bf16 weights drawn on the card, their blocks and the
+    # cache's (one block each on one rank) through the hook, then the
+    # bare decode_step on the same tokens
+    params = T.init(cfg, seed=0, device=dev, draw_device=dev.type)
+    stree = param_specs(params, mesh, mode="serve")
+    hook = gather_hook(stree)
+    prompt = torch.randint(0, cfg.vocab, (2, 8), device=dev,
+                           generator=torch.Generator(device=dev)
+                           .manual_seed(5))
+    cache_t = T.init_cache(cfg, 2, 512, device=dev)
+    cache_b = T.init_cache(cfg, 2, 512, device=dev)
+    ctree = cache_specs(cache_t, mesh)
+
+    def on_blocks():
+        with act_ctx(dp="data", tp="model", mesh=mesh), torch.no_grad():
+            return _greedy(lambda t, pos: T.decode_step(
+                params, cfg, t, cache_t, pos, gather=hook,
+                cache_specs=ctree)[0], prompt, 24)
+
+    def bare():
+        with torch.no_grad():
+            return _greedy(lambda t, pos: T.decode_step(
+                params, cfg, t, cache_b, pos)[0], prompt, 24)
+
+    reset_launch_counts()
+    with count_collectives() as coll:
+        lg, tok = on_blocks()
+    dec_counts = launch_counts()
+    lg1, tok1 = bare()
+    n_steps = lg.shape[0]
+    print(f"[tp] (a) 32 decode steps (8 prompt tokens replayed, 24 greedy; "
+          f"B 2, bf16, a 512-slot cache) through the hook: logits bit-equal "
+          f"to the bare decode_step's: {torch.equal(lg, lg1)}, tokens "
+          f"equal: {torch.equal(tok, tok1)}; collectives sent {dict(coll)}; "
+          f"launches {dec_counts}")
+    per = 2 * cfg.n_layers + 1
+    require(torch.equal(lg, lg1) and torch.equal(tok, tok1) and not coll
+            and dec_counts == {k: n_steps * (cfg.n_layers if k ==
+                                             "decode_attention" else
+                                             per if k == "rmsnorm" else 0)
+                               for k in dec_counts},
+            f"§23(a) decode: not the bare path's bits, or launches "
+            f"{dec_counts}")
+    # ms a step after that warm run: the two in turns, 4 runs of 32 steps
+    # each (a replay overwrites the slots it reads), each synchronised,
+    # which goes first alternating
+    step_ms = {"blocks": [], "bare": []}
+    turns = (("blocks", on_blocks), ("bare", bare))
+    for i in range(4):
+        for k, fn in turns if i % 2 == 0 else turns[::-1]:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            step_ms[k].append((time.perf_counter() - t0) / n_steps * 1e3)
+    med = {k: statistics.median(v) for k, v in step_ms.items()}
+    print(f"[tp] (a) ms a decode step after a warm run, in turns: on the "
+          f"blocks through the hook {[round(v, 3) for v in step_ms['blocks']]}"
+          f", bare {[round(v, 3) for v in step_ms['bare']]}; medians "
+          f"{med['blocks']:.3f} and {med['bare']:.3f}")
+    rep["decode"] = {"steps": n_steps, "launches": dec_counts,
+                     "ms_per_step": step_ms}
+    del params, cache_t, cache_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the lse output and the merge of slot blocks, qwen's heads
+    H, Hkv, D = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    gen = torch.Generator(device=dev).manual_seed(7)
+    lse_rep = {"cases": []}
+    for dt in (torch.float32, torch.bfloat16):
+        for L in (4096, 32768):
+            q = torch.randn((2, H, D), generator=gen, device=dev).to(dt)
+            k, v = (torch.randn((2, L, Hkv, D), generator=gen,
+                                device=dev).to(dt) for _ in range(2))
+            for n in (2, 4):
+                T_r = L // n
+                # the last block empty for row 0, every block for row 1
+                lens = torch.tensor([(n - 1) * T_r - 100, 0],
+                                    dtype=torch.int32, device=dev)
+                outs, lses = [], []
+                for i in range(n):
+                    loc = torch.clamp(lens - i * T_r, 0, T_r).to(torch.int32)
+                    o, ls = decode_attention(q, k[:, i * T_r:(i + 1) * T_r],
+                                             v[:, i * T_r:(i + 1) * T_r],
+                                             loc, return_lse=True)
+                    outs.append(o)
+                    lses.append(ls)
+                merged = merge_partials(torch.stack(outs), torch.stack(lses))
+                whole, whole_lse = decode_attention(q, k, v, lens,
+                                                    return_lse=True)
+                plain, plain_lse = decode_attention_plain(q, k, v, lens,
+                                                          return_lse=True)
+                tol = TOL[dt]
+                close = (torch.allclose(merged[0], whole[0].float(),
+                                        rtol=tol, atol=tol)
+                         and torch.allclose(merged[0], plain[0].float(),
+                                            rtol=tol, atol=tol)
+                         and torch.allclose(whole_lse[0], plain_lse[0],
+                                            rtol=tol, atol=tol))
+                e_whole = float((merged[0] - whole[0].float()).abs().max())
+                e_plain = float((merged[0] - plain[0].float()).abs().max())
+                e_lse = float((whole_lse[0] - plain_lse[0]).abs().max())
+                empty = (bool((merged[1] == 0).all())
+                         and bool((whole[1] == 0).all())
+                         and bool(torch.isinf(whole_lse[1]).all())
+                         and bool((whole_lse[1] < 0).all())
+                         and bool(torch.isinf(lses[-1][0]).all()))
+                print(f"[tp] (b) {dt} L {L} in {n} slot blocks (lengths "
+                      f"{lens.tolist()}): merged against one launch "
+                      f"{e_whole:.3e}, against the plain version "
+                      f"{e_plain:.3e}, lse against the plain one {e_lse:.3e}"
+                      f" (tol {tol:g}); empty blocks and rows: lse -inf, "
+                      f"output 0: {empty}")
+                require(close and empty,
+                        f"§23(b) {dt} L {L} / {n}: the merged blocks "
+                        "disagree")
+                lse_rep["cases"].append({
+                    "dtype": str(dt), "L": L, "blocks": n,
+                    "lengths": lens.tolist(), "err_whole": e_whole,
+                    "err_plain": e_plain, "err_lse": e_lse})
+            del q, k, v
+    torch.cuda.empty_cache()
+    # device µs per launch, qwen's B 1 serving shape, with and without lse
+    times = {}
+    for L, Tc in ((512, 512), (32768, 32768)):
+        q = torch.randn((1, H, D), generator=gen, device=dev).to(
+            torch.bfloat16)
+        k, v = (torch.randn((1, Tc, Hkv, D), generator=gen, device=dev)
+                .to(torch.bfloat16) for _ in range(2))
+        ln = torch.full((1,), L, dtype=torch.int32, device=dev)
+        times[L] = {
+            "us": graph_us(lambda: decode_attention(q, k, v, ln)),
+            "us_lse": graph_us(lambda: decode_attention(q, k, v, ln,
+                                                        return_lse=True)),
+            "ms": time_ms(lambda: decode_attention(q, k, v, ln)),
+            "ms_lse": time_ms(lambda: decode_attention(q, k, v, ln,
+                                                       return_lse=True))}
+        print(f"[tp] (b) decode attention, q (1, {H}, {D}) bf16, cache "
+              f"(1, {Tc}, {Hkv}, {D}), L {L}: device µs per launch "
+              f"{times[L]['us']:.3f} without lse, {times[L]['us_lse']:.3f} "
+              f"with (CUDA graph); call ms {times[L]['ms']:.5f}, "
+              f"{times[L]['ms_lse']:.5f}")
+        del q, k, v
+    lse_rep["times"] = times
+    rep["lse"] = lse_rep
+    torch.cuda.empty_cache()
+
+    # (c) two cards, where there are two
+    n_cards = torch.cuda.device_count()
+    if n_cards >= 2:
+        r0 = two_cards()
+        print(f"[tp] (c) 1 x 2 model mesh over NCCL, qwen1.5-0.5b full in "
+              f"f32: decode of {sum(TWO_CARD_DECODE[:2])} steps on a "
+              f"{TWO_CARD_DECODE[2]}-slot cache (blocks "
+              f"{r0['cache_block']}): max abs err "
+              f"{r0['decode_max_abs_err']:.3e}"
+              f" against one card (logits up to "
+              f"{r0['decode_logits_max']:.3f}), tokens equal; train step "
+              f"{r0['train']} against one card's {r0['train_one_card']}; "
+              f"f32 gradients within {r0['grad_worst_ratio']:.3e}"
+              f" of a leaf's norm (worst {r0['grad_worst_leaf']})")
+        rep["two_cards"] = r0
+    else:
+        print(f"[tp] (c) not run: this machine has {n_cards} card; the 1 x 2 "
+              f"mesh needs two (§23 ran on one card)")
+        rep["two_cards"] = None
+    rep["phase_s"] = time.perf_counter() - t23
+    report["tp"] = rep
+    print(f"[tp] §23 took {rep['phase_s']:.1f} s; the script "
+          f"{time.perf_counter() - T_START:.1f} s so far")
+    return dec_counts
 
 
 def main(argv=None) -> int:
@@ -1344,36 +1814,6 @@ def main(argv=None) -> int:
         require(1 <= seen <= n, f"profile: {name} launches "
                 f"{[(r[0][:40], r[2]) for r in rows]} of {n}")
         return sum(r[1] for r in rows) / seen
-
-    def graph_us(fn, n: int = 50, rotate=None) -> float:
-        """Device µs per call of ``fn`` from CUDA events around the replay
-        of a CUDA graph of ``n`` calls: the launches back to back, with no
-        host time between them and no profiler session.  With ``rotate``
-        (a list of argument tuples) call i is ``fn(*rotate[i % len])``
-        and every call's output is kept until the replay ends, so no call
-        finds its input or output in L2 once the tuples span more than
-        it."""
-        args = rotate or [()]
-        outs = []
-        side = torch.cuda.Stream()
-        side.wait_stream(torch.cuda.current_stream())
-        with torch.cuda.stream(side):
-            fn(*args[0])
-        torch.cuda.current_stream().wait_stream(side)
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph):
-            for i in range(n):
-                y = fn(*args[i % len(args)])
-                if rotate:
-                    outs.append(y)
-        graph.replay()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        graph.replay()
-        end.record()
-        end.synchronize()
-        return start.elapsed_time(end) * 1e3 / n
 
     def timed(name, fn, **kw):
         return time_ms(fn, runs_out=repeats.setdefault(name, []), **kw)
@@ -3081,11 +3521,15 @@ def main(argv=None) -> int:
     sharded_counts = dist_phase(report, dev, ck_root / "resume", 20,
                                 dry_proc, dry_out)
 
+    # 23. tp --------------------------------------------------------------
+    tp_counts = tp_phase(report, dev)
+
     # record ----------------------------------------------------------------
     # launches on the main paths: qwen, deepseek and mixtral decode steps
     # (§5, §16, §18), qwen and mixtral prefills (§7, §18), the sliced,
     # incremental front end's decode steps (§19), xlstm's decode steps
-    # (§20) and qwen's train steps (§21, and §22's on the host mesh)
+    # (§20), qwen's train steps (§21, and §22's on the host mesh) and
+    # §23's decode steps on the blocks
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:26",
                            serve_counts["rmsnorm"]
@@ -3094,13 +3538,15 @@ def main(argv=None) -> int:
                            + live_counts["rmsnorm"]
                            + xlstm_serve_counts["rmsnorm"]
                            + train_counts["rmsnorm"]
-                           + sharded_counts["rmsnorm"]),
+                           + sharded_counts["rmsnorm"]
+                           + tp_counts["rmsnorm"]),
                "decode_attention": ("src/repro_torch/csrc/decode_attention.cu",
                                     "src/repro/kernels/decode_attention.py:68",
                                     serve_counts["decode_attention"]
                                     + mixtral_decode_counts[
                                         "decode_attention"]
-                                    + live_counts["decode_attention"]),
+                                    + live_counts["decode_attention"]
+                                    + tp_counts["decode_attention"]),
                "flash_attention": ("src/repro_torch/csrc/flash_attention.cu",
                                    "src/repro/kernels/flash_attention.py:79",
                                    prefill_counts["flash_attention"]

@@ -59,7 +59,13 @@
 //    second cluster barrier keeps every block resident until its peers
 //    have read it.  An empty split carries m = -1e30, l = 0, acc = 0, so
 //    its weight exp2(m - M) is exactly 0 or multiplies zeros; a row whose
-//    splits are all empty (length 0) gets zeros.
+//    splits are all empty (length 0) gets zeros.  Where the caller asks
+//    for it (a non-null `lse`), block 0 of the cluster also writes each
+//    row's log-sum-exp from that merge's (M, l): M ln 2 + ln l in natural
+//    log (the scores carry log2 e), -inf for a row of length 0.  A cache
+//    cut into slot blocks is then attended block by block and the
+//    blocks' outputs merged by their lse; the null case does no more work
+//    than before.
 // Why a cluster and not a second pass or atomics: the decode step is
 // host-bound, so one launch per call matters more than anything a second
 // kernel could overlap; nothing is kept between calls (no workspace, no
@@ -70,7 +76,8 @@
 // (B, H, D) of one dtype; k and v are (B, T, Hkv, D) of one dtype with a
 // contiguous last axis and strides that are multiples of 8 elements;
 // lengths is int32 (B,) on the device; D is a multiple of 8 up to 256;
-// every pointer is 16-byte aligned; the plan is `decode_plan`'s.  A length
+// every pointer is 16-byte aligned; the plan is `decode_plan`'s; `lse`
+// is null or f32 (B, H), contiguous.  A length
 // is clamped to [0, T]; a row of length 0 gets zeros.
 
 #include "common.cuh"
@@ -87,6 +94,7 @@ constexpr int kMaxCluster = 8;   // the portable cluster size
 constexpr int kMaxSmem = 232448; // 227 KB, a block's most
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kLn2 = 0.6931471805599453f;
 
 // Byte offsets in dynamic shared memory past its first 128-byte boundary,
 // as `decode_plan` computes them: the ring (stages x (K, V) tiles), which
@@ -167,8 +175,9 @@ template <typename TQ, typename TKV, int G>
 __global__ void __launch_bounds__(kThreads)
 decode_attention_kernel(const __grid_constant__ CUtensorMap kmap,
                         const __grid_constant__ CUtensorMap vmap, const void* q_,
-                        const int* __restrict__ lengths, void* out_, int H, int Hkv, int T,
-                        int D, int ngroups, int tile, int stages, float qscale) {
+                        const int* __restrict__ lengths, void* out_, float* lse, int H,
+                        int Hkv, int T, int D, int ngroups, int tile, int stages,
+                        float qscale) {
   constexpr int V = Vec<TKV>::n, VPL = 8 / V;
   // positions per lane group per step: independent work for the lane,
   // within the registers of G heads' queries and accumulators
@@ -404,6 +413,9 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap kmap,
       pw[r * G + tid] = w;
     }
     pinv[tid] = ls > 0.f ? 1.f / ls : 0.f;
+    if (lse != nullptr && rank == 0 && tid < gcnt)
+      lse[row0 / D + tid] =
+          ls > 0.f ? fmaf(M, kLn2, logf(ls)) : -__int_as_float(0x7f800000);
   }
   __syncthreads();
   TQ* out = static_cast<TQ*>(out_) + row0;
@@ -422,8 +434,8 @@ decode_attention_kernel(const __grid_constant__ CUtensorMap kmap,
   cluster_sync();  // no block leaves while a peer may still read it
 }
 
-using Kernel = void (*)(CUtensorMap, CUtensorMap, const void*, const int*, void*, int, int, int,
-                        int, int, int, int, float);
+using Kernel = void (*)(CUtensorMap, CUtensorMap, const void*, const int*, void*, float*, int,
+                        int, int, int, int, int, int, float);
 
 // The kernel for (TQ, TKV, G), allowed the most dynamic shared memory
 // once; null if that fails.
@@ -507,7 +519,8 @@ extern "C" int repro_decode_attention_clusters(int H, int Hkv, int D, int q_dtyp
 }
 
 extern "C" int repro_decode_attention(
-    const void* q, const void* k, const void* v, const void* lengths, void* out, int B, int H,
+    const void* q, const void* k, const void* v, const void* lengths, void* out, void* lse, int B,
+    int H,
     int Hkv, int T, int D, long long ksb, long long kst, long long ksh, long long vsb,
     long long vst, long long vsh, float scale, int q_dtype, int kv_dtype, int tile, int stages,
     int cluster, int grid, int smem, void* stream) {
@@ -531,8 +544,9 @@ extern "C" int repro_decode_attention(
   const cudaLaunchConfig_t cfg =
       config(grid, smem, cluster, static_cast<cudaStream_t>(stream), &attr);
   const cudaError_t e = cudaLaunchKernelEx(&cfg, kern, kmap, vmap, q,
-                                           static_cast<const int*>(lengths), out, H, Hkv, T, D,
-                                           ngroups, tile, stages, scale * kLog2e);
+                                           static_cast<const int*>(lengths), out,
+                                           static_cast<float*>(lse), H, Hkv, T, D, ngroups, tile,
+                                           stages, scale * kLog2e);
   const cudaError_t last = cudaGetLastError();
   return static_cast<int>(e != cudaSuccess ? e : last);
 }

@@ -24,9 +24,12 @@ of names, or None for none) and uses the autograd-aware forms of
 Over an axis of one rank each returns ``x`` itself, with no call to the
 process group (a compiler drops such a collective too).  On ``meta``
 tensors (the dry run) nothing is sent: each returns a tensor of the
-right shape.  Inside :func:`count_collectives` every call
+right shape, still on the autograd graph (its backward tallies the
+adjoint collective: a dry run's step counts both directions, as the
+reference's compiled step does).  Inside :func:`count_collectives` every call
 adds the bytes of its output, per device, under its kind, the names the
-reference reads from the compiled program.
+reference reads from the compiled program (and, given a list, records
+its kind, mesh axis and output shape there).
 """
 
 from __future__ import annotations
@@ -52,6 +55,7 @@ __all__ = [
     "tp_size",
     "constrain",
     "act_ctx",
+    "with_axes",
     "all_reduce",
     "all_gather",
     "reduce_scatter",
@@ -99,12 +103,19 @@ def mesh_axes(m) -> dict[str, int]:
     return {a: int(m.shape[a]) for a in m.axis_names}
 
 
-_state = threading.local()
+class _Bound(threading.local):
+    """The activation axes bound on this thread, and ``tpx``: the bound
+    ``tp`` axis's ``(size, this rank's index, name)``, filled on first
+    use after each binding (the layers ask for it at every call)."""
+
+    def __init__(self):
+        self.v = {"dp": None, "tp": None, "mesh": None, "tpx": (1, 0, None)}
+
+
+_state = _Bound()
 
 
 def _get() -> dict[str, Any]:
-    if not hasattr(_state, "v"):
-        _state.v = {"dp": None, "tp": None, "mesh": None}
     return _state.v
 
 
@@ -115,6 +126,7 @@ def set_activation_axes(*, dp=None, tp=None, mesh=None) -> None:
     data parallelism); ``tp`` is a single mesh-axis name."""
     s = _get()
     s["dp"], s["tp"], s["mesh"] = dp, tp, mesh
+    s["tpx"] = (1, 0, None) if tp is None or mesh is None else None
 
 
 def activation_axes() -> tuple[Any, Any]:
@@ -197,42 +209,81 @@ def constrain(x, axes: Sequence[Any]):
                           placements(x.device_mesh, PartitionSpec(*resolved)))
 
 
+def with_axes(fn):
+    """``fn`` run under the activation axes bound now.  The binding is
+    per thread, and autograd runs a CUDA tensor's backward on a device
+    thread of its own, where a checkpoint's recompute would see none:
+    the function a checkpoint reruns is wrapped in this.  ``fn`` itself
+    where nothing is bound."""
+    s = _get()
+    bound = {k: s[k] for k in ("dp", "tp", "mesh")}
+    if all(v is None for v in bound.values()):
+        return fn
+
+    def run(*args, **kw):
+        with act_ctx(**bound):
+            return fn(*args, **kw)
+    return run
+
+
 @contextmanager
 def act_ctx(*, dp=None, tp=None, mesh=None):
     """Scoped :func:`set_activation_axes` (restores the previous binding)."""
     s = _get()
-    prev = (s["dp"], s["tp"], s["mesh"])
+    prev = dict(s)
     set_activation_axes(dp=dp, tp=tp, mesh=mesh)
     try:
         yield
     finally:
-        s["dp"], s["tp"], s["mesh"] = prev
+        s.update(prev)
 
 
 # ---------------------------------------------------------------------------
 # Collectives over mesh axes
 # ---------------------------------------------------------------------------
 
-_tally: list[dict[str, float]] = []
+_tally: list[tuple[dict[str, float], list | None]] = []
 
 
 @contextmanager
-def count_collectives():
+def count_collectives(calls: list | None = None):
     """Yields a dict that collects, by kind ("all-gather", "all-reduce",
     "reduce-scatter", "all-to-all"), the bytes of every collective's
-    output on this rank while the block runs."""
+    output on this rank while the block runs.  With ``calls``, each call
+    also appends ``(kind, mesh axis, output shape, output bytes)`` to
+    that list."""
     out: dict[str, float] = {}
-    _tally.append(out)
+    entry = (out, calls)
+    _tally.append(entry)
     try:
         yield out
     finally:
-        _tally.remove(out)
+        _tally.remove(entry)
 
 
-def _count(kind: str, t: torch.Tensor) -> None:
+def _count(kind: str, t: torch.Tensor, axis: str) -> None:
     """Tally one collective's output on this rank."""
-    for d in _tally:
-        d[kind] = d.get(kind, 0.0) + float(t.numel() * t.element_size())
+    n = float(t.numel() * t.element_size())
+    for d, calls in _tally:
+        d[kind] = d.get(kind, 0.0) + n
+        if calls is not None:
+            calls.append((kind, axis, tuple(t.shape), n))
+
+
+class _OnMeta(torch.autograd.Function):
+    """A collective on ``meta`` tensors: an output of ``shape`` on the
+    autograd graph; its backward tallies the ``adjoint`` collective."""
+
+    @staticmethod
+    def forward(ctx, x, shape, adjoint, axis):
+        ctx.in_shape, ctx.adjoint, ctx.axis = x.shape, adjoint, axis
+        return x.new_empty(shape)
+
+    @staticmethod
+    def backward(ctx, g):
+        out = g.new_empty(ctx.in_shape)
+        _count(ctx.adjoint, out, ctx.axis)
+        return out, None, None, None
 
 
 def _group(a: str):
@@ -249,14 +300,26 @@ def _nnf():
     return nnf
 
 
-def all_reduce(x: torch.Tensor, axes) -> torch.Tensor:
-    """The sum of ``x`` over the ranks of ``axes``."""
+def all_reduce(x: torch.Tensor, axes, op: str = "sum") -> torch.Tensor:
+    """The sum (``op="sum"``) or the maximum (``op="max"``, no backward:
+    it raises where autograd would record) of ``x`` over the ranks of
+    ``axes``."""
+    if op not in ("sum", "max"):
+        raise ValueError(f"all_reduce: op must be 'sum' or 'max', not {op!r}")
     for a in as_axes(axes):
         if axis_size(a) == 1:
             continue
-        if x.device.type != "meta":
+        if x.device.type == "meta":
+            x = _OnMeta.apply(x, x.shape, "all-reduce", a)
+        elif op == "sum":
             x = _nnf().all_reduce(x, group=_group(a))
-        _count("all-reduce", x)
+        else:
+            if torch.is_grad_enabled() and x.requires_grad:
+                raise RuntimeError("all_reduce(op='max') has no backward")
+            import torch.distributed as dist
+            x = x.clone(memory_format=torch.contiguous_format)
+            dist.all_reduce(x, op=dist.ReduceOp.MAX, group=_group(a))
+        _count("all-reduce", x, a)
     return x
 
 
@@ -270,11 +333,11 @@ def all_gather(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         if x.device.type == "meta":
             shape = list(x.shape)
             shape[dim] *= n
-            x = x.new_empty(shape)
+            x = _OnMeta.apply(x, shape, "reduce-scatter", a)
         else:
             x = torch.cat(_nnf().all_gather(x.contiguous(), group=_group(a)),
                           dim)
-        _count("all-gather", x)
+        _count("all-gather", x, a)
     return x
 
 
@@ -291,12 +354,12 @@ def reduce_scatter(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
         if x.device.type == "meta":
             shape = list(x.shape)
             shape[dim] //= n
-            x = x.new_empty(shape)
+            x = _OnMeta.apply(x, shape, "all-gather", a)
         else:
             parts = [c.contiguous() for c in x.chunk(n, dim)]
             x = _nnf().reduce_scatter(torch.empty_like(parts[0]), parts,
                                       group=_group(a))
-        _count("reduce-scatter", x)
+        _count("reduce-scatter", x, a)
     return x
 
 
@@ -305,8 +368,10 @@ def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
     goes to rank ``j``; block ``j`` of the result came from rank ``j``."""
     if axis_size(axis) == 1:
         return x
-    if x.device.type != "meta":
+    if x.device.type == "meta":
+        x = _OnMeta.apply(x, x.shape, "all-to-all", axis)
+    else:
         x = _nnf().all_to_all_single(torch.empty_like(x), x.contiguous(),
                                      group=_group(axis))
-    _count("all-to-all", x)
+    _count("all-to-all", x, axis)
     return x

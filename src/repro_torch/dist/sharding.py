@@ -10,8 +10,15 @@ divide the axis size evenly, so no spec here ever introduces padding.
   divisible dimension, then FSDP over the data axes on the largest
   remaining divisible dimension.
 * ``param_specs(mode="serve")`` — TP-only *resident* weights.
-* ``cache_specs`` — batch dimension over the data axes, one more
-  divisible dimension over ``model``.
+* ``cache_specs`` — batch dimension over the data axes, the largest
+  divisible non-batch dimension over ``model`` (the slots in every 32k
+  cell's attention cache).
+
+:func:`tp_spec` is a leaf's ``model`` placement alone (the same in both
+modes); :func:`layer_spec_leaves` and :func:`gather_hook` view a spec
+tree one layer at a time, for the rank programs that gather one layer's
+data-sharded blocks at a time (:mod:`repro_torch.train.sharded`, the dry
+run).
 
 The policies are pure functions of leaf shapes and the mesh's axis
 names and sizes (:func:`repro_torch.dist.context.mesh_axes`), so they
@@ -37,7 +44,7 @@ from typing import Any
 
 import torch
 
-from ..pytree import tree_map
+from ..pytree import flatten, tree_map, unflatten
 from .context import all_gather, mesh_axes
 
 __all__ = [
@@ -52,6 +59,11 @@ __all__ = [
     "param_specs",
     "cache_specs",
     "spec_leaves",
+    "tp_spec",
+    "spec_at",
+    "param_groups",
+    "layer_spec_leaves",
+    "gather_hook",
     "serve_weights_resident",
 ]
 
@@ -215,7 +227,6 @@ def param_specs(params, mesh, mode: str = "train"):
 def spec_leaves(tree, spec_tree) -> list:
     """The specs of ``spec_tree`` (whose leaves are PartitionSpecs, tuples
     that a tree walk would enter) in ``flatten(tree)``'s leaf order."""
-    from ..pytree import flatten
     out = []
     for path, _ in flatten(tree):
         node = spec_tree
@@ -225,8 +236,84 @@ def spec_leaves(tree, spec_tree) -> list:
     return out
 
 
+def tp_spec(shape, msize: int) -> PartitionSpec:
+    """The ``model`` placement alone of a leaf of ``shape`` on a ``model``
+    axis of ``msize`` ranks: the entry :func:`param_specs` gives it in
+    either mode, with no data axis."""
+    return _leaf_spec(tuple(shape), msize=msize, dsize=1, dp_entry=None,
+                      fsdp=False)
+
+
+def spec_at(tree, path: tuple):
+    """The subtree of ``tree`` (params or specs) at the key path ``path``."""
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def param_groups(params) -> list[tuple]:
+    """The key paths of the parameter tree's groups that a rank program
+    gathers one at a time: the embedding, each layer in order, the final
+    norm and the LM head where there is one."""
+    head = [("lm_head",)] if "lm_head" in params else []
+    return ([("embed",)] + [("layers", i) for i in
+                            range(len(params["layers"]))]
+            + [("final_norm",)] + head)
+
+
+def layer_spec_leaves(params, spec_tree) -> dict[tuple, list]:
+    """:func:`spec_leaves` one group at a time: group path (see
+    :func:`param_groups`) -> the group's specs in ``flatten`` order of
+    its leaves."""
+    return {path: spec_leaves(spec_at(params, path),
+                              spec_at(spec_tree, path))
+            for path in param_groups(params)}
+
+
+def gather_hook(spec_tree, keep="model"):
+    """The per-layer gather of a rank program whose parameters are its
+    blocks placed by ``spec_tree``: ``hook(blocks, path, whole=())``
+    returns the group at ``path`` (:func:`param_groups`; any subtree's
+    key path) all-gathered over every spec entry but ``keep`` (the data
+    axes, by default: its ``model`` blocks are kept), and the subtrees
+    under the keys in ``whole`` over every entry (``model`` too).  Which
+    leaves of a group it gathers, and over which dims, is worked out at
+    the group's first call; a group with nothing to gather (every group
+    on one rank, or ``mode="serve"`` blocks) is returned as it is."""
+    plans: dict = {}
+
+    def plan(blocks, path, whole):
+        out = []
+        for i, ((kp, _), s) in enumerate(zip(flatten(blocks), spec_leaves(
+                blocks, spec_at(spec_tree, path)))):
+            k = None if kp[0] in whole else keep
+            dims = [(d, e) for d, e in enumerate(s)
+                    if e is not None and e != k]
+            if dims:
+                out.append((i, dims))
+        return out
+
+    def hook(blocks, path: tuple, whole=()):
+        key = (path, tuple(whole))
+        todo = plans.get(key)
+        if todo is None:
+            todo = plans[key] = plan(blocks, path, whole)
+        if not todo:
+            return blocks
+        leaves = [t for _, t in flatten(blocks)]
+        for i, dims in todo:
+            for d, e in dims:
+                leaves[i] = all_gather(leaves[i], e, dim=d)
+        return unflatten(blocks, leaves)
+
+    return hook
+
+
 def cache_specs(cache, mesh):
-    """KV/state cache specs: batch over data axes, kv-heads over model."""
+    """KV/state cache specs: the batch dimension over the data axes where
+    it divides, and the largest other dimension that divides over
+    ``model`` (the slot dimension of every 32k cell's attention cache;
+    the first of equal sizes wins)."""
     msize, dsize = _model_size(mesh), _data_size(mesh)
     dp = _dp_entry(mesh)
 
@@ -264,7 +351,6 @@ def serve_weights_resident(params, mesh, *,
     device, i.e. the decode step may be unrolled without materialising
     per-layer FSDP all-gathers (see :mod:`repro_torch.launch.dryrun`).
     ``hbm_bytes_per_chip`` defaults to the H100's 80 GB."""
-    from ..pytree import flatten
     msize = _model_size(mesh)
 
     def leaf_bytes(leaf) -> float:

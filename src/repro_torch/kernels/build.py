@@ -109,7 +109,7 @@ def library() -> ctypes.CDLL:
     lib.repro_rmsnorm.argtypes = [p, p, p, i, i, f, i, p]
     lib.repro_rmsnorm.restype = i
     lib.repro_decode_attention.argtypes = [
-        p, p, p, p, p,              # q, k, v, lengths, out
+        p, p, p, p, p, p,           # q, k, v, lengths, out, lse (or null)
         i, i, i, i, i,              # B, H, Hkv, T, D
         ll, ll, ll, ll, ll, ll,     # k strides (b, t, h), v strides
         f, i, i,                    # scale, q dtype, kv dtype

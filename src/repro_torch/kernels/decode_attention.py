@@ -15,7 +15,12 @@ the details.
 
 Both versions keep the softmax weights in f32 for the P.V product, as
 the TPU kernel does (``decode_sdpa`` rounds them to the cache dtype
-first).  The output is in q's dtype.
+first).  The output is in q's dtype.  With ``return_lse`` both also
+return each row's log-sum-exp of its scaled scores, (B, H) f32, natural
+log, -inf for a row of length 0: the kernel writes it from the merge it
+already does (no extra pass), so a cache cut into slot blocks can be
+attended block by block and the blocks' outputs merged
+(:func:`merge_partials`).
 
 :func:`decode_attention` launches the kernel for CUDA tensors and uses
 :func:`decode_attention_plain` only for tensors on the CPU
@@ -37,7 +42,7 @@ from .build import library
 from .nograd import refuse_grad
 
 __all__ = ["DecodePlan", "decode_attention", "decode_attention_plain",
-           "decode_plan"]
+           "decode_plan", "merge_partials"]
 
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 _NEG_INF = -1e30
@@ -117,9 +122,11 @@ def _schedulable(plan: DecodePlan, H: int, Hkv: int, D: int, q_code: int,
 
 
 def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
-                           v: torch.Tensor,
-                           lengths: torch.Tensor) -> torch.Tensor:
-    """q: (B, H, D), k/v: (B, T, Hkv, D), lengths: (B,) -> (B, H, D).
+                           v: torch.Tensor, lengths: torch.Tensor, *,
+                           return_lse: bool = False):
+    """q: (B, H, D), k/v: (B, T, Hkv, D), lengths: (B,) -> (B, H, D), and
+    with ``return_lse`` the (B, H) f32 log-sum-exp of each row's scaled
+    scores (-inf for a row of length 0).
 
     Positions ``t < lengths[b]`` are attended; the math is f32."""
     B, H, D = q.shape
@@ -131,10 +138,34 @@ def decode_attention_plain(q: torch.Tensor, k: torch.Tensor,
     s = torch.where(ok[:, None, None, :], s, _NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhgt,bthd->bhgd", p, v.float())
-    return out.reshape(B, H, D).to(q.dtype)
+    out = out.reshape(B, H, D).to(q.dtype)
+    if not return_lse:
+        return out
+    lse = torch.logsumexp(s, dim=-1).reshape(B, H)
+    return out, torch.where(lengths[:, None] > 0, lse, -math.inf)
 
 
-def _check(q, k, v, lengths) -> None:
+def merge_partials(outs: torch.Tensor, lses: torch.Tensor) -> torch.Tensor:
+    """The attention over a cache cut into blocks, from each block's
+    output ``outs`` (n, B, H, D) and log-sum-exp ``lses`` (n, B, H):
+    ``sum_i exp(lse_i - M) out_i / sum_i exp(lse_i - M)`` in f32, summed
+    in block order (the same bits wherever it runs).  A block of length 0
+    (lse -inf) adds nothing; a row whose blocks are all empty gets zeros."""
+    M = lses.amax(0)
+    M = torch.where(torch.isinf(M), 0.0, M)
+    num = torch.zeros(outs.shape[1:], dtype=torch.float32,
+                      device=outs.device)
+    den = torch.zeros(lses.shape[1:], dtype=torch.float32,
+                      device=lses.device)
+    for out, lse in zip(outs.float().unbind(0), lses.float().unbind(0)):
+        w = torch.exp(lse - M)
+        num = num + w[..., None] * out
+        den = den + w
+    return torch.where(den[..., None] > 0,
+                       num / torch.where(den > 0, den, 1.0)[..., None], 0.0)
+
+
+def _check(q, k, v, lengths, lse=None) -> None:
     if q.device.type != "cuda":
         raise ValueError(f"decode_attention: no kernel for device {q.device}")
     if not (k.device == v.device == lengths.device == q.device):
@@ -171,16 +202,26 @@ def _check(q, k, v, lengths) -> None:
         if c.data_ptr() % 16:
             raise ValueError(f"decode_attention: {name} must be 16-byte "
                              "aligned")
+    if lse is not None and (lse.dtype != torch.float32
+                            or lse.shape != (B, H) or not lse.is_contiguous()
+                            or lse.device != q.device):
+        raise ValueError("decode_attention: lse must be a contiguous f32 "
+                         f"(B, H) = {(B, H)} tensor on q's device")
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     lengths: torch.Tensor) -> torch.Tensor:
+                     lengths: torch.Tensor, *, return_lse: bool = False):
     """q: (B, H, D), k/v: (B, T, Hkv, D), lengths: (B,) int32 ->
-    (B, H, D) in q's dtype.  Rows of length 0 give zeros on the card."""
+    (B, H, D) in q's dtype, and with ``return_lse`` the (B, H) f32
+    log-sum-exp of each row's scaled scores.  Rows of length 0 give zeros
+    on the card, and an lse of -inf."""
     if q.device.type in _PLAIN_DEVICES:
-        return decode_attention_plain(q, k, v, lengths)
+        return decode_attention_plain(q, k, v, lengths,
+                                      return_lse=return_lse)
     refuse_grad("decode_attention", q, k, v)
-    _check(q, k, v, lengths)
+    lse = (torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+           if return_lse else None)
+    _check(q, k, v, lengths, lse)
     out = torch.empty_like(q)
     B, H, D = q.shape
     _, T, Hkv, _ = k.shape
@@ -189,7 +230,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _schedulable(plan, H, Hkv, D, q_code, kv_code, q.device.index)
     rc = library().repro_decode_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-        out.data_ptr(), B, H, Hkv, T, D, *k.stride()[:3], *v.stride()[:3],
+        out.data_ptr(), None if lse is None else lse.data_ptr(), B, H, Hkv,
+        T, D, *k.stride()[:3], *v.stride()[:3],
         1.0 / math.sqrt(D), q_code, kv_code, plan.tile, plan.stages,
         plan.cluster, plan.grid, plan.smem,
         torch.cuda.current_stream().cuda_stream)
@@ -197,7 +239,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"decode attention kernel launch failed: CUDA "
                            f"error {rc}")
     decode_attention.launches += 1
-    return out
+    return (out, lse) if return_lse else out
 
 
 decode_attention.launches = 0

@@ -10,33 +10,44 @@ nothing is allocated and no process group is needed.
 * train cells: the sharded train step
   (:func:`repro_torch.train.sharded.sharded_update`, bf16 AdamW moments,
   ``TRAIN_ACCUM`` microbatches, or one a row where rank 0 holds fewer
-  rows, remat) on rank 0's blocks of the state
-  placed by ``param_specs(mode="train")`` and its rows of the batch;
-* prefill cells: ``prefill_logits`` on TP-only (``mode="serve"``) bf16
-  weights, gathered, and rank 0's rows;
+  rows, remat) on rank 0's blocks of the state placed by
+  ``param_specs(mode="train")`` and its rows of the batch: one layer's
+  data-sharded blocks gathered at a time (the gather hook), the
+  ``model`` blocks kept (tensor parallelism inside attention, the MLP and
+  MoE);
+* prefill cells: ``prefill_logits`` on rank 0's TP-only
+  (``mode="serve"``) bf16 blocks and its rows;
 * decode cells: ``decode_step(..., unroll=serve_weights_resident(...))``
-  against the cache placed by ``cache_specs``, its ``model`` blocks
-  gathered for the step and cut back after it.
+  on the same blocks and rank 0's blocks of the cache placed by
+  ``cache_specs``: attention over its slot block (GQA merges the ranks'
+  decode attention by its log-sum-exp, MLA runs the partitioned
+  softmax), the Mamba and xLSTM states gathered for their layer's step.
 
 The record keeps the reference's keys:
 
 * ``memory``: argument, output and alias (donated) bytes per device,
   exactly from the spec'd blocks.  ``gathered_bytes`` (the port's own
-  key) are the whole-leaf buffers that rank 0's program holds at once
-  beside its blocks, also exactly from the specs: every leaf its spec
-  splits over ranks, all-gathered (the cache's too, in a decode cell),
-  and in a train cell every parameter's whole f32 gradient (twice with
-  ``accum`` above 1: the accumulator and one microbatch's), all alive at
-  the end of the backward pass.  ``peak_bytes`` is argument plus output
-  less aliases plus gathered.  ``temp_bytes`` is null: the temporaries'
-  high-water mark (activations, the bf16 copies of the weights) is what
-  a compiler's buffer assignment knows, and an eager program on ``meta``
-  has none, so ``peak_bytes`` leaves them out: it is a floor;
+  key) are the buffers that rank 0's program gathers beside its blocks
+  and may hold at once: the largest parameter group's gathered blocks
+  (the embedding, a layer, the final norm or the head; over the data
+  axes in a train cell, in bf16 where the step casts them, and whole
+  for the Mamba and xLSTM mixers, which have no tensor-parallel form),
+  twice in a train cell (the forward's and the backward's recompute);
+  the largest layer's gathered cache blocks in a decode cell (Mamba and
+  xLSTM states, or an attention cache split on neither its slots nor its
+  kv heads; none in the 32k cells); and the largest all-gather of an
+  activation over ``model``.  ``gradient_bytes`` (the port's own key)
+  are a train cell's f32 gradients of rank 0's blocks (twice with
+  ``accum`` above 1: the accumulator and one microbatch's), 0 in a
+  serving cell.  ``peak_bytes`` is argument plus output less aliases
+  plus gathered plus gradients.  ``temp_bytes`` is null: the
+  temporaries' high-water mark (activations, the bf16 copies of the
+  weights) is what a compiler's buffer assignment knows, and an eager
+  program on ``meta`` has none, so ``peak_bytes`` leaves them out: it is
+  a floor;
 * ``cost.flops``: rank 0's FLOPs, from ``torch.utils.flop_counter``; the
   counter sees every layer and microbatch, so it is not a floor (XLA's
-  count sees a loop body once).  Attention and the dense MLP are
-  replicated over ``model`` (the port has no tensor parallelism inside
-  them), so this is above the reference's per-device count;
+  count sees a loop body once);
 * ``collectives``: rank 0's collective bytes by kind, from
   :func:`repro_torch.dist.context.count_collectives`;
 * ``skipped``: exactly as ``shape_plan`` says; ``accum`` for train cells.
@@ -57,9 +68,11 @@ from torch.utils.flop_counter import FlopCounterMode
 
 from ..configs import SHAPES, arch_names, get_config, shape_plan
 from ..dist import context as dctx
+from ..dist import tp
 from ..dist.sharding import (PartitionSpec, batch_spec, cache_specs,
-                             gather_block, local_shape, param_specs,
-                             serve_weights_resident, spec_leaves)
+                             gather_hook, layer_spec_leaves, local_shape,
+                             param_specs, serve_weights_resident, spec_at,
+                             spec_leaves)
 from ..models import transformer as T
 from ..optim.adamw import AdamWConfig
 from ..pytree import flatten, unflatten
@@ -109,30 +122,70 @@ def _rows_spec(t: torch.Tensor, dp, split: bool) -> PartitionSpec:
     return PartitionSpec(dp if split else None, *([None] * (t.dim() - 1)))
 
 
-def _gathered_bytes(tree, specs, mesh, keep=None) -> float:
-    """The bytes of the buffers :func:`_gathered` makes: each leaf whose
-    spec splits it over ranks (other than ``keep``'s split), at its
-    gathered shape."""
-    total = 0.0
-    for (_, t), s in zip(flatten(tree), specs):
-        kept = PartitionSpec(*(e if e == keep else None for e in s))
-        if local_shape(t.shape, kept, mesh) != local_shape(t.shape, s, mesh):
-            total += _nbytes(t, kept, mesh)
-    return total
+def _kept(spec, keep) -> PartitionSpec:
+    return PartitionSpec(*(e if e == keep else None for e in spec))
 
 
-def _gathered(tree, specs, mesh, keep=None):
-    """Rank 0's blocks of ``tree`` (placed by ``specs``) gathered whole
-    but for the entry ``keep``."""
-    return unflatten(tree, [gather_block(_block(t, s, mesh), s, keep)
-                            for (_, t), s in zip(flatten(tree), specs)])
+def _group_bytes(cfg, params, stree, mesh, cast: bool) -> float:
+    """The largest parameter group's gathered bytes (module docstring):
+    each leaf its spec splits over the data axes at its data-gathered
+    shape, a Mamba or xLSTM mixer's leaves whole; ``cast``: >= 2-D f32
+    leaves in bf16, as the train step gathers them."""
+    best = 0.0
+    for path, specs in layer_spec_leaves(params, stree).items():
+        whole = T.whole_keys(cfg, path[1]) if path[0] == "layers" else ()
+        total = 0.0
+        for (lp, t), s in zip(flatten(spec_at(params, path)), specs):
+            kept = _kept(s, None if lp[0] in whole else "model")
+            shape = local_shape(t.shape, kept, mesh)
+            if shape == local_shape(t.shape, s, mesh):
+                continue
+            size = 2 if (cast and t.dim() >= 2
+                         and t.dtype == torch.float32) else t.element_size()
+            total += math.prod(shape) * size
+        best = max(best, total)
+    return best
 
 
-def _train(cfg, spec, mesh, accum: int, record: dict):
+def _cache_bytes(cfg, cache, ctree, mesh, keep) -> float:
+    """The largest layer's cache blocks that ``decode_step`` gathers over
+    ``model`` for the step (module docstring); ``keep``: the batch's
+    entry."""
+    best = 0.0
+    for i, layer in enumerate(cache["layers"]):
+        dims = {k: tp.model_dim(s) for k, s in ctree["layers"][i].items()}
+        split = set(dims.values())
+        local = {1, 2} if "k" in layer else {1}
+        if split == {None} or (cfg.layer_kind(i) == "attn"
+                               and len(split) == 1 and split <= local):
+            continue
+        best = max(best, sum(
+            math.prod(local_shape(t.shape, _kept(ctree["layers"][i][k],
+                                                 keep), mesh))
+            * t.element_size() for k, t in layer.items()
+            if dims[k] is not None))
+    return best
+
+
+def _activation_bytes(calls, known) -> float:
+    """The largest all-gather over ``model`` of anything but a weight or
+    a cache (``known``: their gathered shapes)."""
+    return max((c[3] for c in calls if c[0] == "all-gather"
+                and c[1] == "model" and c[2] not in known), default=0.0)
+
+
+def _gathered_shapes(tree, specs, mesh, keep) -> set:
+    return {local_shape(t.shape, _kept(s, keep), mesh)
+            for (_, t), s in zip(flatten(tree), specs)} | {
+        tuple(t.shape) for _, t in flatten(tree)}
+
+
+def _train(cfg, spec, mesh, accum: int, record: dict, calls: list):
     dp = batch_spec(mesh)[0]
     state = state_specs(cfg, with_opt=True, opt_dtype=torch.bfloat16)
     params, opt = state["params"], state["opt_state"]
-    specs = spec_leaves(params, param_specs(params, mesh))
+    stree = param_specs(params, mesh)
+    specs = spec_leaves(params, stree)
     ospecs = spec_leaves(opt, param_specs(opt, mesh))
     inp = input_specs(cfg, spec)
     bspecs = {k: _rows_spec(v, dp, True) for k, v in inp.items()}
@@ -151,22 +204,32 @@ def _train(cfg, spec, mesh, accum: int, record: dict):
     state_b = _tree_bytes(params, specs, mesh) + _tree_bytes(opt, ospecs,
                                                              mesh)
     batch_b = sum(_nbytes(v, bspecs[k], mesh) for k, v in inp.items())
-    grads_b = sum(float(t.numel() * t.element_size())
-                  for _, t in flatten(params)) * (2 if accum > 1 else 1)
+    grads_b = _tree_bytes(params, specs, mesh) * (2 if accum > 1 else 1)
+    known = _gathered_shapes(params, specs, mesh, "model")
+    gathered = (2 * _group_bytes(cfg, params, stree, mesh, cast=True)
+                + _activation_bytes(calls, known))
     return (state_b + batch_b, state_b + 4.0 * len(_METRICS), state_b,
-            _gathered_bytes(params, specs, mesh) + grads_b)
+            gathered, grads_b)
 
 
-def _prefill(cfg, spec, mesh, record: dict):
-    dp = batch_spec(mesh)[0]
+def _serve_params(cfg, mesh):
     params = state_specs(cfg, with_opt=False,
                          param_dtype=torch.bfloat16)["params"]
-    specs = spec_leaves(params, param_specs(params, mesh, mode="serve"))
+    stree = param_specs(params, mesh, mode="serve")
+    specs = spec_leaves(params, stree)
+    blocks = unflatten(params, [_block(t, s, mesh)
+                                for (_, t), s in zip(flatten(params), specs)])
+    return params, stree, specs, blocks
+
+
+def _prefill(cfg, spec, mesh, record: dict, calls: list):
+    dp = batch_spec(mesh)[0]
+    params, stree, specs, blocks = _serve_params(cfg, mesh)
     x = input_specs(cfg, spec)["inputs"]
     xspec = _rows_spec(x, dp, True)
     with torch.no_grad():
-        logits = T.prefill_logits(_gathered(params, specs, mesh), cfg,
-                                  _block(x, xspec, mesh))
+        logits = T.prefill_logits(blocks, cfg, _block(x, xspec, mesh),
+                                  gather=gather_hook(stree))
     # serving prefill: last-position logits only, vocab over "model"
     # where it divides
     out_spec = PartitionSpec(dp, "model" if cfg.vocab % 16 == 0 else None)
@@ -174,14 +237,15 @@ def _prefill(cfg, spec, mesh, record: dict):
                                    dtype=logits.dtype, device="meta"),
                        out_spec, mesh)
     arg = _tree_bytes(params, specs, mesh) + _nbytes(x, xspec, mesh)
-    return arg, logits_b, 0.0, _gathered_bytes(params, specs, mesh)
+    known = _gathered_shapes(params, specs, mesh, None)
+    gathered = (_group_bytes(cfg, params, stree, mesh, cast=False)
+                + _activation_bytes(calls, known))
+    return arg, logits_b, 0.0, gathered, 0.0
 
 
-def _decode(cfg, spec, mesh, record: dict):
+def _decode(cfg, spec, mesh, record: dict, calls: list):
     dp = batch_spec(mesh)[0]
-    params = state_specs(cfg, with_opt=False,
-                         param_dtype=torch.bfloat16)["params"]
-    specs = spec_leaves(params, param_specs(params, mesh, mode="serve"))
+    params, stree, specs, blocks = _serve_params(cfg, mesh)
     # Unrolling is only safe with resident (TP-only) weights.
     unroll = serve_weights_resident(params, mesh)
     record["unroll"] = unroll
@@ -189,39 +253,47 @@ def _decode(cfg, spec, mesh, record: dict):
     split = spec.global_batch % dctx.axis_size(dp, mesh) == 0
     tspec = _rows_spec(tok, dp, split)
     cache = cache_shape(cfg, spec)
-    cspecs = spec_leaves(cache, cache_specs(cache, mesh))
-    # the cache's batch dim stays rank 0's; its other spec'd dims are
-    # gathered for the step (and cut back after it, a local slice)
-    c_whole = _gathered(cache, cspecs, mesh, keep=dp if split else None)
+    ctree = cache_specs(cache, mesh)
+    cspecs = spec_leaves(cache, ctree)
+    if not split:    # the batch stays whole on every rank
+        ctree = unflatten(cache, [_kept(s, "model") for s in cspecs])
+        cspecs = spec_leaves(cache, ctree)
+    c_blocks = unflatten(cache, [_block(t, s, mesh) for (_, t), s in
+                                 zip(flatten(cache), cspecs)])
     with dctx.act_ctx(dp=dp if split else None, tp="model", mesh=mesh), \
             torch.no_grad():
-        logits, _ = T.decode_step(_gathered(params, specs, mesh), cfg,
-                                  _block(tok, tspec, mesh).long(), c_whole,
-                                  spec.seq_len - 1, unroll=unroll)
+        logits, _ = T.decode_step(blocks, cfg,
+                                  _block(tok, tspec, mesh).long(), c_blocks,
+                                  spec.seq_len - 1, unroll=unroll,
+                                  gather=gather_hook(stree),
+                                  cache_specs=ctree)
     cache_b = _tree_bytes(cache, cspecs, mesh)
     arg = (_tree_bytes(params, specs, mesh) + _nbytes(tok, tspec, mesh)
            + cache_b + 4.0)
     out = float(logits.numel() * logits.element_size()) + cache_b
-    gathered = (_gathered_bytes(params, specs, mesh)
-                + _gathered_bytes(cache, cspecs, mesh,
-                                  keep=dp if split else None))
-    return arg, out, cache_b, gathered
+    known = (_gathered_shapes(params, specs, mesh, None)
+             | _gathered_shapes(cache, cspecs, mesh, dp if split else None))
+    gathered = (_group_bytes(cfg, params, stree, mesh, cast=False)
+                + _cache_bytes(cfg, cache, ctree, mesh, dp if split else None)
+                + _activation_bytes(calls, known))
+    return arg, out, cache_b, gathered, 0.0
 
 
 def run_cell(cfg, spec, mesh, *, accum: int = 1,
              record: dict | None = None) -> tuple[float, dict, tuple]:
     """Rank 0's program of one cell on ``meta`` on the mesh description
     ``mesh`` -> (its FLOPs, its collective bytes by kind, (argument,
-    output, alias, gathered) bytes).  ``record`` gets ``accum`` (train) or
+    output, alias, gathered, gradient) bytes).  ``record`` gets ``accum``
+    (train) or
     ``unroll`` (decode)."""
     record = {} if record is None else record
-    program = {"train": lambda: _train(cfg, spec, mesh, accum, record),
-               "prefill": lambda: _prefill(cfg, spec, mesh, record),
-               "decode": lambda: _decode(cfg, spec, mesh, record)}
-    with dctx.count_collectives() as coll, \
+    calls: list = []
+    program = {"train": _train, "prefill": _prefill, "decode": _decode}
+    args = (accum,) if spec.kind == "train" else ()
+    with dctx.count_collectives(calls) as coll, \
             FlopCounterMode(display=False) as counter, \
             dctx.act_ctx(dp=batch_spec(mesh)[0], tp="model", mesh=mesh):
-        mem = program[spec.kind]()
+        mem = program[spec.kind](cfg, spec, mesh, *args, record, calls)
     return float(counter.get_total_flops()), dict(coll), mem
 
 
@@ -241,13 +313,14 @@ def dryrun_cell(arch: str, shape_name: str, *, multi_pod: bool = False,
     record = {"arch": arch, "shape": shape_name,
               "mesh": "x".join(map(str, mesh.sizes)),
               "n_devices": mesh.size()}
-    flops, coll, (arg, out, alias, gathered) = run_cell(
+    flops, coll, (arg, out, alias, gathered, grads) = run_cell(
         cfg, spec, mesh, accum=TRAIN_ACCUM.get(arch, 1), record=record)
     record["run_s"] = round(time.time() - t0, 1)
     record["memory"] = {"argument_bytes": arg, "output_bytes": out,
                         "temp_bytes": None, "alias_bytes": alias,
                         "gathered_bytes": gathered,
-                        "peak_bytes": arg + out - alias + gathered}
+                        "gradient_bytes": grads,
+                        "peak_bytes": arg + out - alias + gathered + grads}
     record["cost"] = {"flops": flops, "bytes_accessed": None}
     if collect_hlo:
         record["collectives"] = coll

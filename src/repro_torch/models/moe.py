@@ -18,6 +18,13 @@ back) or tensor parallelism inside the experts (each rank a ``d_ff``
 slice of every expert, then an all-reduce).  The port's activations are
 replicated over the ``model`` axis, so expert parallelism takes this
 rank's slice of the sequence and all-gathers its output back.
+
+The weights may be whole or this rank's ``model`` blocks as
+``param_specs`` places them (:mod:`repro_torch.dist.tp`): a path takes
+the slice of a whole weight it needs, uses a block that is already cut
+along the dim it needs and re-cuts one that is not by an all-to-all; the
+router and the shared experts are tensor-parallel dense layers on the
+replicated tokens.  No weight is gathered over ``model``.
 """
 
 from __future__ import annotations
@@ -28,6 +35,7 @@ import torch
 import torch.nn.functional as F
 
 from ..dist import context as dctx
+from ..dist import tp
 from .common import ModelConfig, act_fn, make_dense, normal
 
 __all__ = ["MoE"]
@@ -109,7 +117,7 @@ class MoE:
         xt = x.reshape(T, d)
         C = MoE.capacity(cfg, T)
         logits, probs, gates, flat_e, ranks, keep = MoE._route_local(
-            p, cfg, xt, C)
+            cfg, MoE._router(p, cfg, xt), C)
         slot = flat_e * C + torch.where(keep, ranks, 0)        # (T*K,)
         token_idx = torch.arange(T, device=x.device).repeat_interleave(K)
         # Scatter tokens into the (E*C, d) buffer; a dropped assignment
@@ -120,7 +128,7 @@ class MoE:
         y_buf = _expert_ffn(p["experts"], buf.reshape(E, C, d), cfg.act)
         y = MoE._combine(y_buf.reshape(E * C, d)[slot], keep, gates, T, K,
                          x.dtype)
-        y = y + MoE._shared_tp(p, cfg, xt, None)
+        y = y + MoE._shared(p, cfg, xt)
         aux = MoE._aux_of(cfg, logits, probs, flat_e, keep, aux_axes)
         return y.reshape(B, S, d), aux
 
@@ -131,13 +139,22 @@ class MoE:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def _route_local(p, cfg, xt, capacity):
-        """Routing: the f32 router, top-k gates renormalised, each
-        assignment's rank in its expert's queue.  xt: (t, d) local."""
+    def _router(p, cfg, xt):
+        """The f32 router's logits (t, E) on the tokens ``xt`` (t, d),
+        replicated over ``model`` where a ``tp`` axis is bound (an
+        input-split router sums its ranks' partial products)."""
+        shape = (cfg.d_model, cfg.n_experts)
+        w = tp.dense_blocks(p["router"], shape)
+        y, _ = tp.tp_dense({"w": w["w"].float()}, xt.float(), shape=shape)
+        return y
+
+    @staticmethod
+    def _route_local(cfg, logits, capacity):
+        """Routing from the router's ``logits`` (t, E): top-k gates
+        renormalised, each assignment's rank in its expert's queue."""
         E, K = cfg.n_experts, cfg.top_k
-        t = xt.shape[0]
-        dev = xt.device
-        logits = xt.float() @ p["router"]["w"].float()
+        t = logits.shape[0]
+        dev = logits.device
         probs = torch.softmax(logits, dim=-1)
         gate_vals, expert_ids = torch.topk(probs, K, dim=-1)
         gate_vals = gate_vals / gate_vals.sum(-1, keepdim=True)
@@ -176,22 +193,36 @@ class MoE:
                 "moe_z_loss": z[0], "moe_drop_frac": drop[0]}
 
     @staticmethod
-    def _shared_tp(p, cfg, xt, tp_axis):
-        """Shared experts (0 where there are none); with ``tp_axis`` ``p``
-        holds this rank's ``d_ff`` slice and the partial outputs are
-        summed over it."""
+    def _shared(p, cfg, xt):
+        """Shared experts (0 where there are none) on the tokens ``xt``
+        (t, d), replicated over ``model`` where a ``tp`` axis is bound:
+        tensor-parallel dense layers on this rank's blocks."""
         if "shared" not in p:
             return 0.0
         sh = p["shared"]
-        wg = sh["w_gate"]["w"].to(xt.dtype)
-        wu = sh["w_up"]["w"].to(xt.dtype)
-        wd = sh["w_down"]["w"].to(xt.dtype)
+        d, ff = cfg.d_model, cfg.moe_d_ff * cfg.n_shared_experts
+        g, blk = tp.tp_dense(tp.dense_blocks(sh["w_gate"], (d, ff)), xt,
+                             shape=(d, ff), keep_block=True)
         if cfg.act == "swiglu":
-            h = F.silu(xt @ wg) * (xt @ wu)
+            u, _ = tp.tp_dense(tp.dense_blocks(sh["w_up"], (d, ff)), xt,
+                               shape=(d, ff), keep_block=True)
+            h = F.silu(g) * u
         else:
-            h = act_fn("gelu")(xt @ wg)
-        y = h @ wd
-        return dctx.all_reduce(y, tp_axis) if tp_axis else y
+            h = act_fn("gelu")(g)
+        y, _ = tp.tp_dense(tp.dense_blocks(sh["w_down"], (ff, d)), h,
+                           shape=(ff, d), x_block=blk)
+        return y
+
+    @staticmethod
+    def _experts(p, cfg, dims):
+        """This rank's blocks of the expert weights along ``dims`` (one a
+        weight: the experts for EP, ``d_ff`` for TP) by
+        :func:`repro_torch.dist.tp.as_block`."""
+        E, d, ff = cfg.n_experts, cfg.d_model, cfg.moe_d_ff
+        shapes = {"w_gate": (E, d, ff), "w_up": (E, d, ff),
+                  "w_down": (E, ff, d)}
+        return {k: tp.as_block(w, shapes[k], dims[k])
+                for k, w in p["experts"].items()}
 
     @staticmethod
     def _combine(y_flat, keep, gates, t: int, K: int, dtype):
@@ -218,7 +249,9 @@ class MoE:
         slice of the sequence where ``S % tp == 0``) go by a
         fixed-capacity all-to-all to the ranks that hold their experts,
         through the grouped FFN on this rank's ``E // tp`` experts, and
-        back; the output is all-gathered over the sequence again."""
+        back; the output is all-gathered over the sequence again.  The
+        router and the shared experts run on the whole (replicated)
+        sequence."""
         b_axes, tp_ax = MoE._token_axes()
         B, S, d = x.shape
         E, K = cfg.n_experts, cfg.top_k
@@ -226,16 +259,20 @@ class MoE:
         E_loc = E // m
         r = dctx.axis_index(tp_ax)
         s_split = S % m == 0
+        logits = MoE._router(p, cfg, x.reshape(-1, d))
+        shared = MoE._shared(p, cfg, x.reshape(-1, d))
         if s_split:
             S_loc = S // m
             x = x[:, r * S_loc:(r + 1) * S_loc]
+            logits = logits.reshape(B, S, E)[:, r * S_loc:(r + 1) * S_loc]
         xt = x.reshape(-1, d)
+        logits = logits.reshape(-1, E)
         t = xt.shape[0]
         c_se = max(4, -(-int(t * K * cfg.capacity_factor / E) // 4) * 4)
         dev = xt.device
 
         logits, probs, gates, flat_e, ranks, keep = MoE._route_local(
-            p, cfg, xt, c_se)
+            cfg, logits, c_se)
         dest = flat_e // E_loc
         eslot = flat_e % E_loc
         slot = dest * (E_loc * c_se) + eslot * c_se + \
@@ -247,19 +284,17 @@ class MoE:
         recv = dctx.all_to_all(send, tp_ax)
         buf = recv.reshape(m, E_loc, c_se, d).transpose(0, 1)
         buf = buf.reshape(E_loc, m * c_se, d)
-        mine = {k: w[r * E_loc:(r + 1) * E_loc]
-                for k, w in p["experts"].items()}
+        mine = MoE._experts(p, cfg, {"w_gate": 0, "w_up": 0, "w_down": 0})
         y_buf = _expert_ffn(mine, buf, cfg.act)
         back = y_buf.reshape(E_loc, m, c_se, d).transpose(0, 1)
         ret = dctx.all_to_all(back.reshape(m * E_loc * c_se, d), tp_ax)
         y = MoE._combine(ret[slot], keep, gates, t, K, xt.dtype)
-        y = y + MoE._shared_tp(p, cfg, xt, None)
         aux = MoE._aux_of(cfg, logits, probs, flat_e, keep,
                           b_axes + ((tp_ax,) if s_split else ()))
         y = y.reshape(x.shape)
         if s_split:
             y = dctx.all_gather(y, tp_ax, dim=1)
-        return y, aux
+        return (y.reshape(-1, d) + shared).reshape(B, S, d), aux
 
     @staticmethod
     def _fwd_tp(p: dict, cfg: ModelConfig, x: torch.Tensor
@@ -270,22 +305,13 @@ class MoE:
         b_axes, tp_ax = MoE._token_axes()
         B, S, d = x.shape
         E, K = cfg.n_experts, cfg.top_k
-        m = dctx.tp_size()
-        r = dctx.axis_index(tp_ax)
         xt = x.reshape(-1, d)
         t = xt.shape[0]
         C = max(8, -(-int(t * K * cfg.capacity_factor / E) // 8) * 8)
         dev = xt.device
-
-        def cols(w, dim):
-            n = w.shape[dim] // m
-            return w.narrow(dim, r * n, n)
-
-        ex = p["experts"]
-        mine = {"w_gate": cols(ex["w_gate"], 2), "w_up": cols(ex["w_up"], 2),
-                "w_down": cols(ex["w_down"], 1)}
+        mine = MoE._experts(p, cfg, {"w_gate": 2, "w_up": 2, "w_down": 1})
         logits, probs, gates, flat_e, ranks, keep = MoE._route_local(
-            p, cfg, xt, C)
+            cfg, MoE._router(p, cfg, xt), C)
         slot = flat_e * C + torch.where(keep, ranks, 0)
         token_idx = torch.arange(t, device=dev).repeat_interleave(K)
         contrib = torch.where(keep[:, None], xt[token_idx], 0.0)
@@ -295,12 +321,6 @@ class MoE:
         y = MoE._combine(y_buf.reshape(E * C, d)[slot], keep, gates, t, K,
                          xt.dtype)
         y = dctx.all_reduce(y, tp_ax)
-        if "shared" in p:
-            sh = p["shared"]
-            local = {"shared": {
-                "w_gate": {"w": cols(sh["w_gate"]["w"], 1)},
-                "w_up": {"w": cols(sh["w_up"]["w"], 1)},
-                "w_down": {"w": cols(sh["w_down"]["w"], 0)}}}
-            y = y + MoE._shared_tp(local, cfg, xt, tp_ax)
+        y = y + MoE._shared(p, cfg, xt)
         aux = MoE._aux_of(cfg, logits, probs, flat_e, keep, b_axes)
         return y.reshape(B, S, d), aux

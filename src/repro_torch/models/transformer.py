@@ -28,6 +28,20 @@ the selective-scan op, ``"xla"`` runs the plain twins of the
 reference's XLA path instead (the training path's: those kernels have
 no backward); MLA and the xLSTM blocks have no kernel branch, as in the
 reference, and run their plain code either way.
+
+Tensor parallelism: with a ``tp`` axis bound (:mod:`repro_torch.dist.
+context`) the parameters are this rank's ``model`` blocks as
+``param_specs`` places them, and the layers run as the reference's
+constrained SPMD program does (:mod:`repro_torch.dist.tp`): attention on
+this rank's heads, the MLP's hidden features on this rank's block, the
+residual stream whole on every rank.  The entry points take ``gather``,
+a hook (:func:`repro_torch.dist.sharding.gather_hook`) that turns one
+group of blocks (the embedding, a layer, the final norm, the head) into
+its data-gathered blocks where it is used: inside a layer's
+``torch.utils.checkpoint``, so autograd saves blocks only and the
+backward's recompute gathers again.  Mamba and xLSTM mixers have no
+tensor-parallel form: the hook gathers their weights whole (``model``
+too), and ``decode_step`` gathers their cache blocks for the step.
 """
 
 from __future__ import annotations
@@ -37,10 +51,13 @@ import math
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from ..dist import context as dctx
+from ..dist import tp
+from ..dist.sharding import PartitionSpec
 from ..pytree import flatten
 from .attention import GQA, MLA
-from .common import (ModelConfig, act_fn, dense, init_norm, make_dense,
-                     norm, normal, rope_tables)
+from .common import (ModelConfig, act_fn, init_norm, make_dense, normal,
+                     rope_tables)
 from .moe import MoE
 from .ssm import Mamba
 from .xlstm import MLSTM, SLSTM
@@ -100,12 +117,21 @@ def _init_mlp(gen, cfg: ModelConfig, dtype, device) -> dict:
     return p
 
 
-def _mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
+         x_block: bool = False) -> torch.Tensor:
+    """Gate and up column-parallel, down row-parallel under tensor
+    parallelism: the hidden ``d_ff`` features stay this rank's block."""
+    kw = {"shape": (cfg.d_model, cfg.d_ff), "x_block": x_block,
+          "keep_block": True}
     if cfg.act == "swiglu":
-        h = act_fn("silu")(dense(p["w_gate"], x)) * dense(p["w_up"], x)
+        g, blk = tp.tp_dense(p["w_gate"], x, **kw)
+        h = act_fn("silu")(g) * tp.tp_dense(p["w_up"], x, **kw)[0]
     else:
-        h = act_fn("gelu")(dense(p["w_up"], x))
-    return dense(p["w_down"], h)
+        u, blk = tp.tp_dense(p["w_up"], x, **kw)
+        h = act_fn("gelu")(u)
+    y, _ = tp.tp_dense(p["w_down"], h, shape=(cfg.d_ff, cfg.d_model),
+                       x_block=blk)
+    return y
 
 
 def _init_layer(gen, cfg: ModelConfig, i: int, dtype, device) -> dict:
@@ -125,27 +151,54 @@ def _zero_aux(device) -> dict:
             for name in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
 
 
+def whole_keys(cfg: ModelConfig, i: int) -> tuple[str, ...]:
+    """The keys of layer ``i`` that the gather hook gathers whole (the
+    mixers without a tensor-parallel form)."""
+    return ("mixer",) if cfg.layer_kind(i) != "attn" else ()
+
+
+def _ff(p: dict, cfg: ModelConfig, x: torch.Tensor):
+    """The norm2 half of a layer: (its output, MoE's aux terms or None)."""
+    h, blk = tp.tp_norm(p["norm2"], x, cfg.norm)
+    if "moe" in p:
+        return MoE.fwd(p["moe"], cfg, tp.full(h, blk))
+    return _mlp(p["mlp"], cfg, h, blk), None
+
+
 def _apply_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor, cos,
                  sin, impl: str) -> tuple[torch.Tensor, dict]:
     """Full-sequence layer -> (x, aux terms: zero but for MoE layers).
     The reference's also returns a state slot, which it leaves empty."""
     aux = _zero_aux(x.device)
-    h = norm(p["norm1"], x, cfg.norm)
+    h, blk = tp.tp_norm(p["norm1"], x, cfg.norm)
     kind = cfg.layer_kind(i)
-    # attention takes the rope tables; the kernel choice goes to the
-    # mixers that have a kernel (xLSTM has none)
-    args = (cos, sin) if kind == "attn" else ()
-    kw = {"impl": impl} if kind in ("attn", "mamba") else {}
-    y = _mixer(cfg, i).fwd(p["mixer"], cfg, h, *args, **kw)
+    # attention takes the rope tables and this rank's feature block; the
+    # kernel choice goes to the mixers that have a kernel (xLSTM has none)
+    if kind == "attn":
+        y = _mixer(cfg, i).fwd(p["mixer"], cfg, h, cos, sin, impl=impl,
+                               x_block=blk)
+    else:
+        kw = {"impl": impl} if kind == "mamba" else {}
+        y = _mixer(cfg, i).fwd(p["mixer"], cfg, tp.full(h, blk), **kw)
     x = x + y
     if "norm2" in p:
-        h = norm(p["norm2"], x, cfg.norm)
-        if "moe" in p:
-            y, aux = MoE.fwd(p["moe"], cfg, h)
-        else:
-            y = _mlp(p["mlp"], cfg, h)
+        y, moe_aux = _ff(p, cfg, x)
+        aux = aux if moe_aux is None else moe_aux
         x = x + y
     return x, aux
+
+
+def _gathered_layer(lp: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
+                    cos, sin, impl: str, gather) -> tuple[torch.Tensor, dict]:
+    """Layer ``i`` on its blocks ``lp``, gathered by the hook first."""
+    if gather is not None:
+        lp = gather(lp, ("layers", i), whole=whole_keys(cfg, i))
+    return _apply_layer(lp, cfg, i, x, cos, sin, impl)
+
+
+def _group(params: dict, gather, key: str) -> dict:
+    """The parameter group ``key``, through the gather hook if any."""
+    return params[key] if gather is None else gather(params[key], (key,))
 
 
 def _add_aux(a: dict, b: dict) -> dict:
@@ -192,19 +245,40 @@ def init(cfg: ModelConfig, *, seed: int = 0, device="cuda",
     return params
 
 
-def _embed(params: dict, cfg: ModelConfig, batch) -> torch.Tensor:
+def _embed(embed: dict, cfg: ModelConfig, batch) -> torch.Tensor:
+    """The embedding group's rows of ``batch`` (its token lookup, or the
+    stub frontend's projection), whole on every rank."""
     dt = cfg.compute_dtype
     if cfg.input_mode == "tokens":
-        return params["embed"]["w"].to(dt)[batch]
-    return dense(params["embed"]["proj"], batch.to(dt))
+        return tp.tp_embed(embed["w"], batch, (cfg.vocab, cfg.d_model), dt)
+    d = cfg.d_model
+    return tp.tp_dense(embed["proj"], batch.to(dt), shape=(d, d))[0]
 
 
-def _head(params: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    x = norm(params["final_norm"], x, cfg.norm)
+def head_spec(cfg: ModelConfig) -> PartitionSpec:
+    """The ``model`` placement of :func:`head_matrix` (d, vocab) on the
+    bound mesh: the embedding's, transposed, where the two are tied."""
     if cfg.tie_embeddings:
-        logits = x @ params["embed"]["w"].to(x.dtype).T
-    else:
-        logits = dense(params["lm_head"], x)
+        return PartitionSpec(*reversed(tp.weight_spec((cfg.vocab,
+                                                       cfg.d_model))))
+    return tp.weight_spec((cfg.d_model, cfg.vocab))
+
+
+def head_params(params: dict, cfg: ModelConfig, gather=None) -> dict:
+    """The groups the head reads (the final norm, and the embedding or
+    the LM head), through the gather hook if any."""
+    return {k: _group(params, gather, k) for k in
+            ("final_norm", "embed" if cfg.tie_embeddings else "lm_head")}
+
+
+def _head(params: dict, cfg: ModelConfig, x: torch.Tensor,
+          gather=None) -> torch.Tensor:
+    hp = head_params(params, cfg, gather)
+    x, blk = tp.tp_norm(hp["final_norm"], x, cfg.norm)
+    w = {"w": head_matrix(hp, cfg)}
+    if not cfg.tie_embeddings and "b" in hp["lm_head"]:
+        w["b"] = hp["lm_head"]["b"]
+    logits, _ = tp.tp_dense(w, x, head_spec(cfg), x_block=blk)
     if cfg.logit_softcap:
         c = cfg.logit_softcap
         logits = c * torch.tanh(logits / c)
@@ -217,26 +291,28 @@ def _rope_for(cfg: ModelConfig, positions: torch.Tensor):
 
 
 def _stack(params: dict, cfg: ModelConfig, batch, impl: str,
-           remat: bool) -> tuple[torch.Tensor, dict]:
+           remat: bool, gather=None) -> tuple[torch.Tensor, dict]:
     """Embedding and every layer: the hidden states before the final
     norm, and the aux terms summed over the layers in the reference's
     order (prefix layers one by one; then each unit's layers, and the
     units' sums over the repetitions).  With ``remat`` and autograd
     recording, each layer runs under ``torch.utils.checkpoint`` (its
     activations are recomputed in the backward pass, as the reference's
-    ``jax.checkpoint`` over its layer units does)."""
-    x = _embed(params, cfg, batch)
+    ``jax.checkpoint`` over its layer units does), the gather hook
+    inside it."""
+    x = _embed(_group(params, gather, "embed"), cfg, batch)
     cos, sin = _rope_for(cfg, torch.arange(x.shape[1], device=x.device))
     prefix, period = unit_period(cfg)
     aux_tot = _zero_aux(x.device)
     units = []
     remat = remat and torch.is_grad_enabled()
+    layer = dctx.with_axes(_gathered_layer)
     for i, lp in enumerate(params["layers"]):
         if remat:
-            x, aux = checkpoint(_apply_layer, lp, cfg, i, x, cos, sin, impl,
-                                use_reentrant=False)
+            x, aux = checkpoint(layer, lp, cfg, i, x, cos, sin, impl,
+                                gather, use_reentrant=False)
         else:
-            x, aux = _apply_layer(lp, cfg, i, x, cos, sin, impl)
+            x, aux = _gathered_layer(lp, cfg, i, x, cos, sin, impl, gather)
         if i < prefix:
             aux_tot = _add_aux(aux_tot, aux)
             continue
@@ -250,29 +326,32 @@ def _stack(params: dict, cfg: ModelConfig, batch, impl: str,
 
 
 def forward(params: dict, cfg: ModelConfig, batch, *, remat: bool = True,
-            impl: str = "kernel") -> tuple[torch.Tensor, dict]:
+            impl: str = "kernel", gather=None) -> tuple[torch.Tensor, dict]:
     """Training/eval forward.  batch: (B, S) int tokens or (B, S, d)
     embeddings -> logits (B, S, vocab) and the aux terms (MoE's
     load-balance, z and drop fraction, summed over the layers).
 
     ``remat`` recomputes each layer's activations in the backward pass
     (``torch.utils.checkpoint``); it changes nothing where autograd does
-    not record."""
-    x, aux = _stack(params, cfg, batch, impl, remat)
-    return _head(params, cfg, x), aux
+    not record.  ``gather``: the per-layer gather hook (module
+    docstring)."""
+    x, aux = _stack(params, cfg, batch, impl, remat, gather)
+    return _head(params, cfg, x, gather), aux
 
 
 def forward_features(params: dict, cfg: ModelConfig, batch, *,
                      remat: bool = True, impl: str = "kernel",
-                     unroll: bool = False) -> tuple[torch.Tensor, dict]:
+                     unroll: bool = False, gather=None
+                     ) -> tuple[torch.Tensor, dict]:
     """Like :func:`forward` but stops before the LM head, returning the
     final-norm hidden states (B, S, d), so that a loss head can run
-    chunked.  ``remat`` as in :func:`forward`; ``unroll`` is accepted
-    for the reference's signature and has no effect: the layer loop is
-    always a Python loop."""
+    chunked.  ``remat`` and ``gather`` as in :func:`forward`; ``unroll``
+    is accepted for the reference's signature and has no effect: the
+    layer loop is always a Python loop."""
     del unroll
-    x, aux = _stack(params, cfg, batch, impl, remat)
-    return norm(params["final_norm"], x, cfg.norm), aux
+    x, aux = _stack(params, cfg, batch, impl, remat, gather)
+    fn = _group(params, gather, "final_norm")
+    return tp.full(*tp.tp_norm(fn, x, cfg.norm)), aux
 
 
 def head_matrix(params: dict, cfg: ModelConfig) -> torch.Tensor:
@@ -283,16 +362,18 @@ def head_matrix(params: dict, cfg: ModelConfig) -> torch.Tensor:
 
 
 def prefill_logits(params: dict, cfg: ModelConfig, batch, *,
-                   impl: str = "kernel") -> torch.Tensor:
+                   impl: str = "kernel", gather=None) -> torch.Tensor:
     """Serving prefill: run the prompt through the stack and return the
     LAST position's logits only, (B, vocab); the (B, S, vocab) logits
-    never exist."""
-    x, _ = forward_features(params, cfg, batch, remat=False, impl=impl)
+    never exist.  ``gather`` as in :func:`forward`."""
+    x, _ = forward_features(params, cfg, batch, remat=False, impl=impl,
+                            gather=gather)
     last = x[:, -1, :]                      # features are already normed
-    logits = last @ head_matrix(params, cfg).to(last.dtype)
-    if not cfg.tie_embeddings and "b" in params.get("lm_head", {}):
-        logits = logits + params["lm_head"]["b"].to(logits.dtype)
-    return logits
+    hp = head_params(params, cfg, gather)
+    w = {"w": head_matrix(hp, cfg)}
+    if not cfg.tie_embeddings and "b" in hp["lm_head"]:
+        w["b"] = hp["lm_head"]["b"]
+    return tp.tp_dense(w, last, head_spec(cfg))[0]
 
 
 # ---------------------------------------------------------------------------
@@ -311,37 +392,60 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
         for i in range(cfg.n_layers)]}
 
 
+def _decode_whole_cache(mixer, p: dict, cfg: ModelConfig, h: torch.Tensor,
+                        c: dict, pos: int, cspec) -> tuple[torch.Tensor, dict]:
+    """A mixer with no tensor-parallel form (Mamba, xLSTM) on its cache's
+    blocks: the ``model``-split dims gathered for the step, the updated
+    state cut back into the blocks in place."""
+    dims = {k: tp.model_dim(cspec[k]) if cspec else None for k in c}
+    if all(d is None for d in dims.values()):
+        return mixer.decode(p, cfg, h, c, pos)
+    ax = tp.tp_axis()[2]
+    whole = {k: v if dims[k] is None else dctx.all_gather(v, ax, dim=dims[k])
+             for k, v in c.items()}
+    y, new = mixer.decode(p, cfg, h, whole, pos)
+    for k, v in c.items():
+        v.copy_(new[k] if dims[k] is None else tp.rank_block(new[k], dims[k]))
+    return y, c
+
+
 def _decode_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
-                  c: dict, pos: int) -> tuple[torch.Tensor, dict]:
-    h = norm(p["norm1"], x, cfg.norm)
-    y, c = _mixer(cfg, i).decode(p["mixer"], cfg, h, c, pos)
+                  c: dict, pos: int, cspec=None) -> tuple[torch.Tensor, dict]:
+    h, blk = tp.tp_norm(p["norm1"], x, cfg.norm)
+    if cfg.layer_kind(i) == "attn":
+        y, c = _mixer(cfg, i).decode(p["mixer"], cfg, h, c, pos,
+                                     x_block=blk, cspec=cspec)
+    else:
+        y, c = _decode_whole_cache(_mixer(cfg, i), p["mixer"], cfg,
+                                   tp.full(h, blk), c, pos, cspec)
     x = x + y
     if "norm2" in p:
-        h = norm(p["norm2"], x, cfg.norm)
-        if "moe" in p:
-            y, _ = MoE.fwd(p["moe"], cfg, h)
-        else:
-            y = _mlp(p["mlp"], cfg, h)
-        x = x + y
+        x = x + _ff(p, cfg, x)[0]
     return x, c
 
 
 def decode_step(params: dict, cfg: ModelConfig, tok: torch.Tensor,
-                cache: dict, pos: int, *,
-                unroll: bool = False) -> tuple[torch.Tensor, dict]:
+                cache: dict, pos: int, *, unroll: bool = False,
+                gather=None, cache_specs=None) -> tuple[torch.Tensor, dict]:
     """One autoregressive step.  tok: (B,) int tokens or (B, 1, d)
     embeddings; pos: count of tokens already in the cache.  The cache
     is updated in place and returned; logits are (B, vocab).
     ``unroll`` is accepted for the reference's signature and has no
-    effect: the layer loop is always a Python loop."""
+    effect: the layer loop is always a Python loop.  ``gather`` as in
+    :func:`forward`; ``cache_specs`` (``cache_specs(cache, mesh)``'s tree)
+    places the cache's blocks where ``cache`` holds this rank's."""
     del unroll
+    embed = _group(params, gather, "embed")
     if cfg.input_mode == "tokens":
-        x = _embed(params, cfg, tok[:, None])
+        x = _embed(embed, cfg, tok[:, None])
     else:
-        x = _embed(params, cfg, tok)
+        x = _embed(embed, cfg, tok)
     for i, lp in enumerate(params["layers"]):
-        x, _ = _decode_layer(lp, cfg, i, x, cache["layers"][i], pos)
-    logits = _head(params, cfg, x)
+        if gather is not None:
+            lp = gather(lp, ("layers", i), whole=whole_keys(cfg, i))
+        cs = cache_specs["layers"][i] if cache_specs is not None else None
+        x, _ = _decode_layer(lp, cfg, i, x, cache["layers"][i], pos, cs)
+    logits = _head(params, cfg, x, gather)
     return logits[:, 0], cache
 
 

@@ -10,31 +10,39 @@ to be saved or restored (:func:`as_dtensors`, :func:`local_blocks`).
 The batch is split over the data axes (``batch_spec``) and replicated
 over ``model``.  One step, on every rank:
 
-1. all-gather each parameter to its whole shape;
-2. the loss and its gradients on this rank's rows (the single-device
-   step body, :func:`repro_torch.train.step.accumulate_grads`), with the
-   activation axes bound, so MoE layers take their expert- or
-   tensor-parallel paths where ``model`` is larger than 1;
-3. each gradient reduced to this rank's block: a reduce-scatter over the
-   axes its spec shards, an all-reduce over the others (one flat buffer
-   for all the leaves that share them), divided by the world size.  Every rank differentiates its own copy of the loss and
-   every cross-rank path in the forward is a collective whose backward is
-   its exact adjoint, so the sum of the ranks' gradients is the gradient
-   of the sum of their losses: ``world`` times the global loss (each
-   model rank holds a copy of its data shard's loss).  Leaves replicated
-   over ``model`` and the experts' rows that only their rank computes are
-   averaged alike;
-4. the global norm from the distinct blocks only (a block's squares
+1. the loss and its gradients on this rank's rows (the single-device
+   step body, :func:`repro_torch.train.step.accumulate_grads`) on this
+   rank's blocks, with the activation axes bound: the bf16 copies are
+   made of the blocks, and the per-layer gather hook
+   (:func:`repro_torch.dist.sharding.gather_hook`) all-gathers one
+   group's data-sharded blocks (the embedding, a layer, the final norm,
+   the head) where it is used, inside the layer's checkpoint, so no
+   rank holds more than one layer gathered (two in the backward: the
+   recompute's and the gradients').  The ``model`` blocks stay blocks:
+   attention runs on this rank's heads, the MLP on its block of ``d_ff``,
+   MoE on its experts or its ``d_ff`` slices, the residual whole
+   (:mod:`repro_torch.dist.tp`); Mamba and xLSTM mixers, which have no
+   tensor-parallel form, are gathered whole;
+2. each gradient is already this rank's block: the all-gathers'
+   adjoints reduce-scatter it over the data axes, and a ``model`` block
+   is only this rank's.  What is left is an all-reduce over the axes the
+   leaf's spec replicates (one flat buffer for all the leaves that
+   share them), then the division by the world size.  Every rank
+   differentiates its own copy of the loss and every cross-rank path in
+   the forward is a collective whose backward is its exact adjoint, so
+   the sum of the ranks' gradients is the gradient of the sum of their
+   losses: ``world`` times the global loss (each model rank holds a copy
+   of its data shard's loss).  With ``accum`` above 1 the microbatches'
+   gradients are accumulated in f32 blocks;
+3. the global norm from the distinct blocks only (a block's squares
    divided by the ranks that hold a copy of it, then one all-reduce), and
    the AdamW update on this rank's blocks;
-5. the metrics averaged over the data axes.
+4. the metrics averaged over the data axes.
 
 Gradients, the clipped update and the loss equal the single-device step
 on the global batch up to the order of the sums (bit for bit on one
 rank, where every collective is the identity and nothing is copied).
-Tensor parallelism inside attention and the MLP is not here: the
-``model`` axis replicates their compute.  On a
-:class:`repro_torch.dist.context.MeshSpec` the same program runs on
+On a :class:`repro_torch.dist.context.MeshSpec` the same program runs on
 ``meta`` blocks (the dry run).
 """
 
@@ -46,7 +54,7 @@ from typing import Any
 import torch
 
 from ..dist import context as dctx
-from ..dist.sharding import (PartitionSpec, batch_spec, gather_block,
+from ..dist.sharding import (PartitionSpec, batch_spec, gather_hook,
                              local_block, named, param_specs, spec_leaves)
 from ..models import transformer as T
 from ..models.common import ModelConfig
@@ -55,8 +63,8 @@ from ..pytree import flatten, unflatten
 from .step import _to_device, accumulate_grads
 
 __all__ = ["make_sharded_train_step", "shard_train_state",
-           "train_state_shardings", "sharded_update", "as_dtensors",
-           "local_blocks"]
+           "train_state_shardings", "sharded_grads", "sharded_update",
+           "as_dtensors", "local_blocks"]
 
 PyTree = Any
 
@@ -104,15 +112,13 @@ def _replicas(spec, sizes: dict[str, int]) -> int:
 
 
 def _reduce(grads: list, specs: list, sizes: dict[str, int]) -> list:
-    """Each gradient summed over every rank and cut to this rank's block,
-    over the world size: a reduce-scatter over the axes its spec shards,
-    then one all-reduce over the other axes for all the leaves that share
-    them (and a dtype), on one flat buffer."""
+    """Each gradient block (already summed over the ranks that hold its
+    block's pieces: the gathers' adjoints reduce-scattered it) summed over
+    the axes its spec replicates and divided by the world size: one
+    all-reduce for all the leaves that share those axes (and a dtype), on
+    one flat buffer."""
     out, groups = [], {}
     for g, spec in zip(grads, specs):
-        for i, e in enumerate(spec):
-            if e is not None:
-                g = dctx.reduce_scatter(g, e, dim=i)
         held = {a for e in spec for a in dctx.as_axes(e)}
         rest = tuple(a for a in sizes if a not in held and sizes[a] > 1)
         groups.setdefault((rest, g.dtype), []).append(len(out))
@@ -128,6 +134,20 @@ def _reduce(grads: list, specs: list, sizes: dict[str, int]) -> list:
     return [g / world for g in out] if world > 1 else out
 
 
+def sharded_grads(cfg: ModelConfig, mesh, specs: list, params: PyTree,
+                  batch: dict, *, accum: int = 1, remat: bool = True,
+                  unroll: bool = False) -> tuple[list, dict]:
+    """Steps 1 and 2 of this rank's program (module docstring): its
+    blocks' gradients of the global mean loss, in ``flatten`` order, and
+    the loss's metrics on its rows.  The activation axes must be bound
+    (:func:`sharded_update` binds them)."""
+    grads, metrics = accumulate_grads(
+        params, cfg, batch, accum=accum, remat=remat, unroll=unroll,
+        gather=gather_hook(unflatten(params, specs)))
+    return (_reduce([g for _, g in flatten(grads)], specs,
+                    dctx.mesh_axes(mesh)), metrics)
+
+
 def sharded_update(cfg: ModelConfig, opt: AdamWConfig, mesh, specs: list,
                    params: PyTree, opt_state: PyTree, batch: dict, *,
                    accum: int = 1, remat: bool = True, unroll: bool = False
@@ -139,12 +159,8 @@ def sharded_update(cfg: ModelConfig, opt: AdamWConfig, mesh, specs: list,
     sizes = dctx.mesh_axes(mesh)
     dp = batch_spec(mesh)[0]
     with dctx.act_ctx(dp=dp, tp="model", mesh=mesh):
-        flat = flatten(params)
-        whole = unflatten(params, [gather_block(t, s)
-                                   for (_, t), s in zip(flat, specs)])
-        grads, metrics = accumulate_grads(whole, cfg, batch, accum=accum,
-                                          remat=remat, unroll=unroll)
-        gl = _reduce([g for _, g in flatten(grads)], specs, sizes)
+        gl, metrics = sharded_grads(cfg, mesh, specs, params, batch,
+                                    accum=accum, remat=remat, unroll=unroll)
         sq = 0
         for g, s in zip(gl, specs):
             part, r = torch.sum(torch.square(g.float())), _replicas(s, sizes)

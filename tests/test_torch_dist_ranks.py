@@ -30,6 +30,7 @@ sums only):
 """
 
 import os
+import threading
 import time
 import traceback
 
@@ -142,12 +143,218 @@ def _run_train(rank, out):
     PS.cast_matmul_params = cast_matmul_params
 
 
+def _tp_cases():
+    from repro_torch.configs import get_config
+    from repro_torch.models.common import ModelConfig
+    f32 = dict(dtype="float32")
+    qwen = get_config("qwen1.5-0.5b", "smoke").replace(**f32)
+    # capacity factor E / K: no token drops on either path
+    deepseek = get_config("deepseek-v2-236b", "smoke").replace(
+        capacity_factor=4.0, **f32)
+    mixtral = get_config("mixtral-8x7b", "smoke").replace(
+        capacity_factor=2.0, **f32)
+    internlm2 = get_config("internlm2-20b", "smoke").replace(**f32)
+    # more kv heads than head_dim and slots: cache_specs splits the heads
+    wide_kv = ModelConfig(name="wide-kv", n_layers=2, d_model=64,
+                          n_heads=32, n_kv_heads=32, head_dim=8, d_ff=128,
+                          vocab=128, dtype="float32")
+    # (config, cache slots, prompt tokens replayed, greedy steps after
+    # them, the cache dim cache_specs splits over "model"): the slots in
+    # qwen's k/v (B, 32, 6, 16), deepseek's c_kv (B, 64, 64) and k_rope
+    # (B, 64, 8), mixtral's 64-slot ring (its window; the replay wraps
+    # it) and internlm2's (B, 32, 1, 16) (one kv head: each rank reads
+    # it for its 3 query heads); the replays reach the second rank's
+    # slots, so that rank holds no valid slot for the first steps.
+    # qwen's head_dim in an 8-slot cache (gathered for the step), and
+    # wide-kv's kv heads (each rank decodes its own)
+    return {"qwen": (qwen, 32, 12, 8, 1),
+            "deepseek": (deepseek, 64, 30, 8, 1),
+            "mixtral": (mixtral, 64, 60, 8, 1),
+            "internlm2": (internlm2, 32, 20, 8, 1),
+            "qwen_hd": (qwen, 8, 3, 4, 3),
+            "wide_kv": (wide_kv, 16, 6, 8, 2)}
+
+
+#: name -> (arch, mesh shape, dtype) of the gradient cases
+_GRAD_CASES = {"grads_qwen_1x2": ("qwen", (1, 2), torch.float32),
+               "grads_deepseek_1x2": ("deepseek", (1, 2), torch.float32),
+               "grads_qwen_2x1": ("qwen", (2, 1), torch.float32),
+               "grads_qwen_1x2_f64": ("qwen", (1, 2), torch.float64),
+               "grads_deepseek_1x2_f64": ("deepseek", (1, 2), torch.float64)}
+
+#: bound on each leaf's gradient error over the leaf's norm, by dtype.
+#: In f32 the one-device gradient is itself 1.6e-6 (qwen smoke) and
+#: 2.3e-6 (deepseek smoke) of a leaf's norm away from the f64 gradient,
+#: so no reordering of its sums can meet 1e-6: the TP gradients measured
+#: 2.1e-6 (qwen) and 2.7e-6 (deepseek) from the one-device ones, the
+#: FSDP ones 2.3e-7 (``tools/tp_grad_errors.py``).  In f64 the same
+#: programs are held to 1e-6.
+_GRAD_TOL = {torch.float32: 5e-6, torch.float64: 1e-6}
+
+
+def _blocks(tree, specs, mesh):
+    from repro_torch.dist.sharding import local_block, placements
+    from repro_torch.pytree import flatten, unflatten
+    return unflatten(tree, [
+        local_block(t, mesh, placements(mesh, s)).contiguous()
+        for (_, t), s in zip(flatten(tree), specs)])
+
+
+def _weight_shapes(params, specs, mesh):
+    """The shapes a weight takes gathered over ``model``: whole, or whole
+    over ``model`` and still split over the data axes."""
+    from repro_torch.dist.sharding import PartitionSpec, local_shape
+    from repro_torch.pytree import flatten
+    out = set()
+    for (_, t), s in zip(flatten(params), specs):
+        out.add(tuple(t.shape))
+        data = PartitionSpec(*(None if e == "model" else e for e in s))
+        out.add(local_shape(t.shape, data, mesh))
+    return out
+
+
+def _greedy(step, toks, n_prompt: int, n_new: int):
+    """Replay ``toks[:, :n_prompt]`` through ``step(tok, pos) -> logits``,
+    then ``n_new`` greedy steps: every step's logits and the tokens."""
+    logits, out = [], []
+    tok = toks[:, 0]
+    for pos in range(n_prompt + n_new):
+        lg = step(tok, pos)
+        logits.append(lg)
+        nxt = lg.argmax(-1)
+        if pos + 1 < n_prompt:
+            tok = toks[:, pos + 1]
+        else:
+            tok = nxt
+            out.append(nxt)
+    return torch.stack(logits), torch.stack(out)
+
+
+def _run_tp(rank, out):
+    """TP on a (1, 2) mesh (forward, decode over slot-split caches, the
+    train step's gradients) and per-layer FSDP on a (2, 1) mesh, each
+    against the one-device port; every collective's call recorded."""
+    from repro_torch.data import DataConfig, SyntheticLM
+    from repro_torch.dist.context import act_ctx, count_collectives
+    from repro_torch.dist.sharding import (cache_specs, gather_hook,
+                                           param_specs, spec_leaves)
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import flatten, unflatten
+    from repro_torch.train.sharded import (as_dtensors, sharded_grads,
+                                           train_state_shardings)
+    from repro_torch.train.step import _to_device, accumulate_grads
+    import repro_torch.train.step as PS
+    from torch.distributed.device_mesh import init_device_mesh
+    cast_matmul_params = PS.cast_matmul_params
+    PS.cast_matmul_params = lambda p, dtype=None: p   # the bf16 cast off
+    try:
+        mp = init_device_mesh("cpu", (1, _WORLD),
+                              mesh_dim_names=("data", "model"))
+        for name, (cfg, slots, n_prompt, n_new, _) in _tp_cases().items():
+            params = T.init(cfg, seed=0, device="cpu",
+                            param_dtype=torch.float32)
+            stree = param_specs(params, mp, mode="serve")
+            specs = spec_leaves(params, stree)
+            blocks = _blocks(params, specs, mp)
+            hook = gather_hook(stree)
+            toks = torch.randint(0, cfg.vocab, (2, n_prompt),
+                                 generator=torch.Generator().manual_seed(1))
+            res = {"weight_shapes": _weight_shapes(params, specs, mp)}
+            calls = []
+            with count_collectives(calls), \
+                    act_ctx(dp="data", tp="model", mesh=mp):
+                res["logits"] = T.forward(blocks, cfg, toks, remat=False,
+                                          gather=hook)[0]
+            res["logits_1"] = T.forward(params, cfg, toks, remat=False)[0]
+            res["forward_calls"] = calls
+
+            cache = T.init_cache(cfg, 2, slots, dtype=torch.float32,
+                                 device="cpu")
+            cspec = cache_specs(cache, mp)
+            cblocks = _blocks(cache, spec_leaves(cache, cspec), mp)
+            res["cache_block"] = tuple(flatten(cblocks)[0][1].shape)
+            res["cache_whole"] = tuple(flatten(cache)[0][1].shape)
+            calls = []
+            with count_collectives(calls), \
+                    act_ctx(dp="data", tp="model", mesh=mp), \
+                    torch.no_grad():
+                res["decode"] = _greedy(
+                    lambda t, pos: T.decode_step(blocks, cfg, t, cblocks,
+                                                 pos, gather=hook,
+                                                 cache_specs=cspec)[0],
+                    toks, n_prompt, n_new)
+            whole = T.init_cache(cfg, 2, slots, dtype=torch.float32,
+                                 device="cpu")
+            with torch.no_grad():
+                res["decode_1"] = _greedy(
+                    lambda t, pos: T.decode_step(params, cfg, t, whole,
+                                                 pos)[0],
+                    toks, n_prompt, n_new)
+            res["decode_calls"] = calls
+            out[f"tp_{name}"] = res
+
+        # 4 x 40 tokens (80 a data rank): no weight has a dim of 160 or
+        # 80, so a gathered activation never takes a weight's shape
+        data = SyntheticLM(DataConfig(vocab=512, seq_len=40, global_batch=4))
+        batch = _to_device(data.next_batch(), "cpu")
+        for name, (arch, shape, dt) in _GRAD_CASES.items():
+            cfg = _tp_cases()[arch][0].replace(dtype=str(dt)[6:])
+            mesh = mp if shape == (1, 2) else init_device_mesh(
+                "cpu", shape, mesh_dim_names=("data", "model"))
+            p0 = T.init(cfg, seed=0, device="cpu", param_dtype=dt)
+            specs = spec_leaves(p0, param_specs(p0, mesh))
+            n, i = mesh.size(0), mesh.get_local_rank(0)
+            rows = {k: v.chunk(n, 0)[i] for k, v in batch.items()}
+            calls = []
+            with count_collectives(calls), \
+                    act_ctx(dp="data", tp="model", mesh=mesh):
+                gl, metrics = sharded_grads(cfg, mesh, specs,
+                                            _blocks(p0, specs, mesh), rows)
+            shd = train_state_shardings(p0, mesh)["params"]
+            res = {"grads": {"/".join(map(str, k)): v.full_tensor()
+                             for k, v in flatten(as_dtensors(
+                                 unflatten(p0, gl), shd))},
+                   "loss": float(metrics["loss"]), "calls": calls,
+                   "weight_shapes": _weight_shapes(p0, specs, mesh)}
+            g1, m1 = accumulate_grads(p0, cfg, batch)
+            res["grads_1"] = {"/".join(map(str, k)): v
+                              for k, v in flatten(g1)}
+            res["loss_1"] = float(m1["loss"])
+            out[name] = res
+
+        # the backward (and each layer's recompute) on another thread, as
+        # autograd runs a CUDA tensor's: the checkpointed functions carry
+        # their activation axes with them
+        cfg = _tp_cases()["qwen"][0]
+        p0 = T.init(cfg, seed=0, device="cpu", param_dtype=torch.float32)
+        stree = param_specs(p0, mp)
+        leaves = [t.detach().requires_grad_() for _, t in flatten(
+            _blocks(p0, spec_leaves(p0, stree), mp))]
+        grads = {}
+        for where in ("here", "thread"):
+            with act_ctx(dp="data", tp="model", mesh=mp):
+                loss, _ = PS.loss_fn(unflatten(p0, leaves), cfg, batch,
+                                     gather=gather_hook(stree))
+
+            def backward(where=where, loss=loss):
+                grads[where] = torch.autograd.grad(loss, leaves)
+            if where == "here":
+                backward()
+            else:
+                t = threading.Thread(target=backward)
+                t.start()
+                t.join()
+        out["thread_qwen_1x2"] = {k: list(v) for k, v in grads.items()}
+    finally:
+        PS.cast_matmul_params = cast_matmul_params
+
+
 def _rank_main(rank: int, store: str, out_dir: str) -> None:
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{store}",
                             rank=rank, world_size=_WORLD)
     out = {}
-    for run in (_run_moe, _run_train):
+    for run in (_run_moe, _run_train, _run_tp):
         try:
             run(rank, out)
         except Exception:
@@ -182,7 +389,7 @@ def ranks(tmp_path_factory):
 
 def _case(ranks, name):
     for r, out in enumerate(ranks):
-        for run in ("_run_moe", "_run_train"):
+        for run in ("_run_moe", "_run_train", "_run_tp"):
             assert run not in out, f"rank {r}: {out[run]}"
     return [out[name] for out in ranks]
 
@@ -234,3 +441,84 @@ def test_sharded_train_two_ranks_match_one_device(ranks, name):
         for k, w in want["bare_params"].items():
             err = float((r["params"][k] - w).norm())
             assert err <= rel_param * float(w.norm()), (k, err)
+
+
+def _no_model_weight_gather(calls, weight_shapes):
+    """No all-gather over ``model`` gives a weight's gathered shape."""
+    bad = [c for c in calls if c[0] == "all-gather" and c[1] == "model"
+           and c[2] in weight_shapes]
+    assert not bad, bad
+
+
+@pytest.mark.parametrize("name", [f"tp_{k}" for k in _tp_cases()])
+def test_tp_forward_and_decode_over_cache_blocks_match_one_device(ranks,
+                                                                  name):
+    """Each config of ``_tp_cases`` on a (1, 2) ``model`` mesh, each rank
+    holding its blocks of the weights and of the cache (``cache_specs``):
+    the forward's logits and those of a prompt replay and greedy decode
+    steps within 1e-5 of the one-device port's (relative to the logits'
+    largest magnitude), with the same greedy tokens.  Over a slot block
+    GQA merges the ranks' decode attention by its log-sum-exp and MLA
+    runs the reference's partitioned softmax; a kv-head block decodes its
+    heads; a head_dim block is gathered for the step.  No all-gather over
+    ``model`` carries a weight."""
+    cfg, slots, _, _, split = _tp_cases()[name[3:]]
+    for res in _case(ranks, name):
+        want = res["logits_1"]
+        err = float((res["logits"] - want).abs().max())
+        assert err <= 1e-5 * float(want.abs().max()), err
+        assert torch.equal(res["logits"].argmax(-1), want.argmax(-1))
+        (lg, tok), (lg1, tok1) = res["decode"], res["decode_1"]
+        assert torch.equal(tok, tok1)
+        err = float((lg - lg1).abs().max())
+        assert err <= 1e-5 * float(lg1.abs().max()), err
+        block, whole = res["cache_block"], res["cache_whole"]
+        assert [i for i, (b, w) in enumerate(zip(block, whole))
+                if b != w] == [split]
+        assert block[split] * _WORLD == whole[split]
+        for calls in (res["forward_calls"], res["decode_calls"]):
+            _no_model_weight_gather(calls, res["weight_shapes"])
+        gathered = {c[2] for c in res["decode_calls"]
+                    if c[:2] == ("all-gather", "model")}
+        # the cache's k (and v) gathered only where head_dim is split
+        assert (whole in gathered) == (split == 3)
+
+
+@pytest.mark.parametrize("name", list(_GRAD_CASES))
+def test_sharded_grads_match_one_device(ranks, name):
+    """The sharded step's gradients (the per-layer gather hook, no whole
+    tree gathered) on a (1, 2) mesh (qwen smoke; deepseek smoke with
+    MLA's heads, the MoE experts re-cut from their ``d`` blocks to
+    expert blocks by an all-to-all) and a (2, 1) mesh (qwen smoke: FSDP,
+    one layer's data blocks gathered at a time), bf16 cast off, against
+    the one-device gradients of the global batch: the ranks' mean loss
+    within 1e-6 relative, each leaf's gradient within ``_GRAD_TOL`` of
+    its norm.  No all-gather over ``model`` carries a weight; on the
+    data mesh every all-gather over ``data`` gives a weight's
+    model-whole shape (one group at a time: the hook's)."""
+    res = _case(ranks, name)
+    loss = sum(r["loss"] for r in res) / len(res)
+    assert loss == pytest.approx(res[0]["loss_1"], rel=1e-6)
+    tol = _GRAD_TOL[_GRAD_CASES[name][2]]
+    for r in res:
+        for k, want in r["grads_1"].items():
+            err = float((r["grads"][k] - want).norm())
+            assert err <= tol * float(want.norm()), (k, err,
+                                                     float(want.norm()))
+        _no_model_weight_gather(r["calls"], r["weight_shapes"])
+        if name.endswith("2x1"):
+            data = [c for c in r["calls"] if c[1] == "data"
+                    and c[0] == "all-gather"]
+            assert data and all(c[2] in r["weight_shapes"] for c in data)
+
+
+def test_backward_on_another_thread_recomputes_on_the_mesh(ranks):
+    """qwen smoke's loss on a (1, 2) mesh, its backward run on another
+    thread (where autograd runs a CUDA tensor's backward, and where no
+    activation axes are bound): each layer's checkpoint recomputes on
+    the mesh, and the gradients are those of a backward on this thread,
+    bit for bit."""
+    for res in _case(ranks, "thread_qwen_1x2"):
+        assert "thread" in res, "the backward on another thread failed"
+        for a, b in zip(res["here"], res["thread"]):
+            assert torch.equal(a, b)

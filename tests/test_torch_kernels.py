@@ -539,6 +539,31 @@ def test_decode_attention_kernel_matches_plain_on_card(cuda, B, H, Hkv, T, D,
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("B,H,Hkv,T,D,lengths", [
+    (3, 32, 8, 4096, 128, [0, 4096, 1]),
+    (2, 16, 16, 1024, 64, [0, 513]),
+])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_decode_attention_lse_on_card(cuda, B, H, Hkv, T, D, lengths,
+                                      dtype):
+    """The kernel's log-sum-exp output against the plain version's
+    (tolerance of the dtype; -inf exactly on rows of length 0), the
+    output the same bits as without it."""
+    q, k, v, lens = _attn_inputs(B, H, Hkv, T, D, lengths)
+    dt = getattr(torch, dtype)
+    tq, tk, tv = (torch.from_numpy(a).to(cuda, dt) for a in (q, k, v))
+    tl = torch.from_numpy(lens).to(cuda)
+    out, lse = decode_attention(tq, tk, tv, tl, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out, decode_attention(tq, tk, tv, tl))
+    live = torch.from_numpy(lens > 0).to(cuda)
+    assert (lse[~live] == -math.inf).all()
+    want = decode_attention_plain(tq, tk, tv, tl, return_lse=True)[1]
+    tol = _TOL[dtype]
+    torch.testing.assert_close(lse[live], want[live], rtol=tol, atol=tol)
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 def test_decode_attention_reads_strided_cache_on_card(cuda, dtype):
     """A view of a longer cache with more KV heads (the kernel's tensor

@@ -31,6 +31,8 @@ from repro.launch import dryrun as RDR
 from repro.launch import specs as RSP
 from repro.models import transformer as RT
 
+import repro_torch.dist.sharding as PSH
+import repro_torch.launch.specs as PSP
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.launch import dryrun as PDR
 from repro_torch.launch import make_host_mesh, make_production_mesh
@@ -251,26 +253,39 @@ def test_dryrun_train_cell(qwen_train_record):
     assert mem["argument_bytes"] == state_b + batch_b
     assert mem["alias_bytes"] == state_b
     assert mem["temp_bytes"] is None
-    # rank 0 holds every leaf its spec splits gathered whole (f32), and
-    # every parameter's whole f32 gradient (accum 1: one set)
-    split_b = sum(4 * math.prod(leaf.shape) for leaf, spec in zip(
-        jax.tree.leaves(st["params"]),
-        jax.tree.leaves(ps, is_leaf=lambda x: isinstance(
-            x, jax.sharding.PartitionSpec)))
-        if any(e is not None for e in spec))
-    n_all = sum(math.prod(leaf.shape) for leaf in jax.tree.leaves(
-        st["params"]))
-    assert mem["gathered_bytes"] == split_b + 4 * n_all
+    # rank 0 gathers one parameter group's data-sharded blocks (bf16
+    # where the step casts them), twice (the forward's and the backward's
+    # recompute), and its largest activation over "model": the MLP's
+    # input, its 16 rows x 4096 x 1024 in bf16 (the gate is split on
+    # d_ff, its output, and reads every feature); nothing whole.  It
+    # holds its blocks' f32 gradients (accum 1: one set)
+    pcfg = get_config("qwen1.5-0.5b", "full")
+    pst = PSP.state_specs(pcfg, with_opt=False)["params"]
+    pspec = PSH.param_specs(pst, production_mesh_spec())
+    blocks = sum(4 * math.prod(PSH.local_shape(t.shape, s,
+                                               production_mesh_spec()))
+                 for (_, t), s in zip(flatten(pst),
+                                      PSH.spec_leaves(pst, pspec)))
+    group = max(
+        sum(math.prod(PSH.local_shape(t.shape, PSH.PartitionSpec(*(
+            e if e == "model" else None for e in s)),
+            production_mesh_spec())) * (2 if t.dim() >= 2 else 4)
+            for (_, t), s in zip(flatten(PSH.spec_at(pst, path)),
+                                 specs) if "data" in s)
+        for path, specs in PSH.layer_spec_leaves(pst, pspec).items())
+    act = (256 // 16) * 4096 * 1024 * 2
+    assert mem["gathered_bytes"] == 2 * group + act
+    assert mem["gradient_bytes"] == blocks
     assert mem["peak_bytes"] == (mem["argument_bytes"] + mem["output_bytes"]
-                                 - mem["alias_bytes"]
-                                 + mem["gathered_bytes"])
+                                 - mem["alias_bytes"] + mem["gathered_bytes"]
+                                 + mem["gradient_bytes"])
     assert r["accum"] == RDR.TRAIN_ACCUM["qwen1.5-0.5b"] == 1
     assert (r["mesh"], r["n_devices"]) == ("16x16", 256)
-    # rank 0 gathers every parameter once (f32), reduce-scatters its
-    # gradients' FSDP/TP blocks and all-reduces the scalars
-    n = T.count_params(T.init(get_config("qwen1.5-0.5b", "full"),
-                              device="meta"))
-    assert r["collectives"]["all-gather"] >= 4 * n
+    # rank 0 gathers each layer's data blocks (bf16) in the forward and
+    # again in the recompute, its activations over "model", and the
+    # backward reduce-scatters and all-reduces the adjoints
+    n = T.count_params(T.init(pcfg, device="meta"))
+    assert r["collectives"]["all-gather"] >= 2 * 2 * n / 16
     assert set(r["collectives"]) == {"all-gather", "reduce-scatter",
                                      "all-reduce"}
     assert r["cost"]["flops"] > 0
@@ -297,8 +312,9 @@ def test_dryrun_train_with_fewer_rows_than_microbatches():
     assert record["accum"] == 16
     assert flops > 0 and coll["all-gather"] > 0
     n = T.count_params(T.init(cfg, device="meta"))
-    # the accumulator and one microbatch's whole f32 gradients
-    assert mem[3] >= 2 * 4 * n
+    # the accumulator and one microbatch's f32 gradients of rank 0's
+    # blocks (at least a 256th of the parameters each)
+    assert mem[4] >= 2 * 4 * n / 256
 
 
 def test_dryrun_decode_prefill_and_skipped_cells():
@@ -327,8 +343,9 @@ def test_dryrun_decode_prefill_and_skipped_cells():
     assert pre["memory"]["alias_bytes"] == 0
     for r in (dec, pre):
         mem = r["memory"]
-        # the serve weights (and the decode cache's model blocks) gathered
-        assert mem["gathered_bytes"] > 0
+        # the activations gathered over "model" (weights and the
+        # slot-split cache stay blocks); no gradients
+        assert mem["gathered_bytes"] > 0 and mem["gradient_bytes"] == 0
         assert mem["peak_bytes"] == (mem["argument_bytes"]
                                      + mem["output_bytes"]
                                      - mem["alias_bytes"]
@@ -354,8 +371,13 @@ def test_dryrun_expert_parallel_prefill():
     t = B * S // 16
     c_se = max(4, -(-int(t * cfg.top_k * cfg.capacity_factor
                          / cfg.n_experts) // 4) * 4)
-    # each layer: two all-to-alls of (16 * 1 expert * c_se, d) bf16
-    assert r["collectives"]["all-to-all"] == 16 * 2 * (16 * c_se * d * 2)
+    # each layer: two all-to-alls of (16 * 1 expert * c_se, d) bf16, and
+    # the three expert weights' blocks re-cut from their d_ff split (the
+    # serve spec's "model" entry) to one expert a rank, one all-to-all of
+    # a block each
+    recut = 3 * cfg.n_experts * d * cfg.moe_d_ff * 2 // 16
+    assert r["collectives"]["all-to-all"] == 16 * (
+        2 * (16 * c_se * d * 2) + recut)
     assert r["cost"]["flops"] > 0
 
 

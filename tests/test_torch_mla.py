@@ -233,11 +233,12 @@ def _shape_tree(cfg):
 
 @pytest.mark.parametrize("n_layers,n", [(None, 235_741_434_880),
                                         (8, 29_191_377_920),
+                                        (4, 13_302_912_000),
                                         (2, 5_358_679_040)])
 def test_count_params_full(n_layers, n):
-    """Full width through shapes only, at the full depth and at the two
+    """Full width through shapes only, at the full depth, at the two
     depths the card runs (``chip_smoke.py``: 8 layers in bf16, 2 in
-    f32)."""
+    f32) and at 4."""
     kw = {} if n_layers is None else {"n_layers": n_layers}
     cfg_ref = ref_configs.get_config(_ARCH, "full").replace(**kw)
     tree = _shape_tree(cfg_ref)

@@ -1,0 +1,228 @@
+"""Tensor parallelism's single-process parts (``repro_torch.dist.tp``, the
+per-layer gather hook, decode attention's log-sum-exp output), on the
+CPU, where the kernels run their plain versions.
+
+* Decode attention's ``lse`` against a float64 log-sum-exp of the same
+  scores (f32 2e-5, -inf exactly for a row of length 0), and a cache cut
+  into slot blocks, attended block by block and merged by
+  ``merge_partials``, against the whole cache (f32 2e-5, bf16 2e-2: the
+  kernels' tolerances), blocks and rows of length 0 included.
+* ``tp_dense``, ``tp_norm`` and ``tp_embed`` on a world-1 gloo mesh: the
+  plain ``dense``, ``norm`` and lookup, bit for bit, on every path.
+* The sharded step's gradients through the per-layer gather hook, on a
+  world-1 mesh, bit-equal to the program it replaced (every leaf
+  gathered whole, then the step body); the hook's forward and decode on
+  the JAX reference's weights bit-equal to the bare port and within
+  1e-4 of the reference (``tests/test_torch_forward.py``'s bound).
+* ``as_block`` and ``reblock`` on ``meta`` over a 4-rank ``model`` axis
+  (a mesh description): the blocks' shapes, and one all-to-all a re-cut.
+"""
+
+import functools
+
+import jax
+import numpy as np
+import pytest
+import torch
+
+import repro.configs as ref_configs
+from repro.dist.context import set_activation_axes
+from repro.models import transformer as RT
+
+import repro_torch.dist.context as C
+from repro_torch import interop
+from repro_torch.configs import get_config
+from repro_torch.data import DataConfig, SyntheticLM
+from repro_torch.dist import tp
+from repro_torch.dist.sharding import (PartitionSpec as P, cache_specs,
+                                       gather_block, gather_hook,
+                                       param_specs, spec_leaves)
+from repro_torch.kernels import decode_attention_plain
+from repro_torch.kernels.decode_attention import merge_partials
+from repro_torch.launch import make_host_mesh
+from repro_torch.models import transformer as T
+from repro_torch.models.common import dense, norm
+from repro_torch.pytree import flatten, unflatten
+from repro_torch.train.sharded import sharded_grads
+from repro_torch.train.step import _to_device, accumulate_grads
+
+_TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _one_torch_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(autouse=True)
+def _no_mesh():
+    set_activation_axes()
+    C.set_activation_axes()
+    yield
+    C.set_activation_axes()
+
+
+def _attn(B, H, Hkv, T_, D, lengths, dtype=torch.float32, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    q = torch.randn((B, H, D), generator=gen).to(dtype)
+    k = torch.randn((B, T_, Hkv, D), generator=gen).to(dtype)
+    v = torch.randn((B, T_, Hkv, D), generator=gen).to(dtype)
+    return q, k, v, torch.tensor(lengths, dtype=torch.int32)
+
+
+def test_plain_lse_matches_float64_logsumexp():
+    B, H, Hkv, T_, D = 3, 8, 2, 40, 16
+    q, k, v, lens = _attn(B, H, Hkv, T_, D, [0, 17, 40])
+    out, lse = decode_attention_plain(q, k, v, lens, return_lse=True)
+    assert lse.dtype == torch.float32 and lse.shape == (B, H)
+    assert torch.equal(out, decode_attention_plain(q, k, v, lens))
+    qd, kd = q.double(), k.double()
+    for b, n in enumerate(lens.tolist()):
+        for h in range(H):
+            if n == 0:
+                assert lse[b, h] == -np.inf
+                continue
+            s = kd[b, :n, h // (H // Hkv)] @ qd[b, h] / np.sqrt(D)
+            want = float(torch.logsumexp(s, 0))
+            assert abs(float(lse[b, h]) - want) <= 2e-5 * max(1.0,
+                                                              abs(want))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n_blocks,lengths", [
+    (2, [1, 17, 39, 40]),        # the second block empty, then partial
+    (4, [0, 9, 10, 31, 40]),     # a row of length 0: every block empty
+    (4, [0, 0]),                 # every row empty
+])
+def test_slot_blocks_merged_match_whole_cache(dtype, n_blocks, lengths):
+    """Each block of ``T / n`` slots attended with its own lengths
+    (``clamp(len - i * T_r, 0, T_r)``), the (out, lse) pairs merged in
+    block order, against one call on the whole cache; rows of length 0
+    merge to zeros."""
+    B, H, Hkv, T_, D = len(lengths), 6, 3, 40, 16
+    q, k, v, lens = _attn(B, H, Hkv, T_, D, lengths, dtype)
+    T_r = T_ // n_blocks
+    outs, lses = [], []
+    for i in range(n_blocks):
+        loc = torch.clamp(lens - i * T_r, 0, T_r).to(torch.int32)
+        o, lse = decode_attention_plain(q, k[:, i * T_r:(i + 1) * T_r],
+                                        v[:, i * T_r:(i + 1) * T_r], loc,
+                                        return_lse=True)
+        outs.append(o)
+        lses.append(lse)
+    got = merge_partials(torch.stack(outs), torch.stack(lses))
+    want = decode_attention_plain(q, k, v, lens).float()
+    live = lens > 0
+    assert got.dtype == torch.float32
+    assert torch.equal(got[~live], torch.zeros_like(got[~live]))
+    torch.testing.assert_close(got[live], want[live], rtol=_TOL[dtype],
+                               atol=_TOL[dtype])
+
+
+def test_tp_layers_on_one_rank_are_the_plain_layers():
+    """On a world-1 mesh every path of ``tp_dense`` (each placement,
+    with and without a feature block in and out), ``tp_norm`` and
+    ``tp_embed`` give the plain layer's bits."""
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn((2, 5, 12), generator=gen)
+    p = {"w": torch.randn((12, 20), generator=gen),
+         "b": torch.randn((20,), generator=gen)}
+    want = dense(p, x)
+    ln = {"scale": torch.rand((12,), generator=gen),
+          "bias": torch.rand((12,), generator=gen)}
+    emb = torch.randn((30, 12), generator=gen)
+    tok = torch.randint(0, 30, (2, 5), generator=gen)
+    with C.act_ctx(dp="data", tp="model", mesh=make_host_mesh("cpu")):
+        assert tp.tp_axis()[0] == 1
+        for spec in (P("model", None), P(None, "model"), P(None, None)):
+            for kw in ({}, {"x_block": True}, {"keep_block": True}):
+                y, blk = tp.tp_dense(p, x, spec, **kw)
+                assert torch.equal(y, want) and not blk
+        for kind in ("rmsnorm", "layernorm"):
+            y, blk = tp.tp_norm(ln, x, kind)
+            assert torch.equal(y, norm(ln, x, kind)) and not blk
+        assert torch.equal(tp.tp_embed(emb, tok, (30, 12), torch.float32),
+                           emb[tok])
+
+
+@functools.lru_cache(maxsize=None)
+def _ref_model(arch: str):
+    cfg_ref = ref_configs.get_config(arch, "smoke").replace(dtype="float32")
+    cfg = get_config(arch, "smoke").replace(dtype="float32")
+    params = RT.init(jax.random.PRNGKey(0), cfg_ref)
+    port = interop.params_from_numpy(jax.tree.map(np.asarray, params), cfg,
+                                     device="cpu")
+    return cfg_ref, cfg, params, port
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-v2-236b"])
+def test_hook_grads_match_whole_gather_one_rank(arch):
+    """``sharded_grads`` (blocks, the per-layer gather hook inside each
+    layer's checkpoint) against the program it replaced: every leaf
+    gathered whole, then ``accumulate_grads``, then the reduce (the
+    identity on one rank); the bf16 cast on, bit for bit."""
+    cfg = get_config(arch, "smoke").replace(dtype="float32")
+    mesh = make_host_mesh("cpu")
+    p0 = T.init(cfg, seed=0, device="cpu", param_dtype=torch.float32)
+    specs = spec_leaves(p0, param_specs(p0, mesh))
+    data = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=16,
+                                  global_batch=2))
+    batch = _to_device(data.next_batch(), "cpu")
+    with C.act_ctx(dp="data", tp="model", mesh=mesh):
+        got, m_got = sharded_grads(cfg, mesh, specs, p0, batch)
+        whole = unflatten(p0, [gather_block(t, s)
+                               for (_, t), s in zip(flatten(p0), specs)])
+        want, m_want = accumulate_grads(whole, cfg, batch)
+    assert torch.equal(m_got["loss"], m_want["loss"])
+    for g, (_, w) in zip(got, flatten(want)):
+        assert torch.equal(g, w)
+
+
+def test_hook_forward_and_decode_match_reference_one_rank():
+    """qwen smoke on the JAX reference's weights: the forward and a
+    decode step through the hook on a world-1 mesh (blocks placed by
+    ``param_specs``, the cache by ``cache_specs``) are the bare port's
+    bits, and within 1e-4 of the reference's."""
+    cfg_ref, cfg, params, port = _ref_model("qwen1.5-0.5b")
+    mesh = make_host_mesh("cpu")
+    hook = gather_hook(param_specs(port, mesh, mode="serve"))
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 9))
+    x = torch.from_numpy(toks).long()
+    ref_logits, _ = RT.forward(params, cfg_ref, jax.numpy.asarray(toks),
+                               impl="xla")
+    bare, _ = T.forward(port, cfg, x, remat=False)
+    cache = T.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    cache_b = T.init_cache(cfg, 2, 16, dtype=torch.float32, device="cpu")
+    with C.act_ctx(dp="data", tp="model", mesh=mesh):
+        got, _ = T.forward(port, cfg, x, remat=False, gather=hook)
+        dec = T.decode_step(port, cfg, x[:, 0], cache, 0, gather=hook,
+                            cache_specs=cache_specs(cache, mesh))[0]
+    assert torch.equal(got, bare)
+    assert torch.equal(dec, T.decode_step(port, cfg, x[:, 0], cache_b,
+                                          0)[0])
+    np.testing.assert_allclose(got.numpy(), np.asarray(ref_logits),
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_blocks_recut_on_meta():
+    """On a (1, 4) mesh description: a whole weight is sliced to this
+    rank's block along the dim asked, a block already cut there is kept,
+    and a block cut along another dim is re-cut by one all-to-all of its
+    own size (no gather)."""
+    mesh = C.MeshSpec(("data", "model"), (1, 4))
+    shape = (8, 128, 64)                 # (E, d, ff): model on d
+    whole = torch.empty(shape, device="meta")
+    block = torch.empty((8, 32, 64), device="meta")
+    calls = []
+    with C.act_ctx(dp="data", tp="model", mesh=mesh), \
+            C.count_collectives(calls):
+        assert tp.model_dim(tp.weight_spec(shape)) == 1
+        assert tp.as_block(whole, shape, 0).shape == (2, 128, 64)
+        assert tp.as_block(block, shape, 1) is block
+        assert tp.as_block(block, shape, 0).shape == (2, 128, 64)
+        assert tp.as_block(block, shape, 2).shape == (8, 128, 16)
+    assert [c[:2] for c in calls] == [("all-to-all", "model")] * 2
+    assert all(np.prod(c[2]) == 8 * 32 * 64 for c in calls)

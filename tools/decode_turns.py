@@ -65,7 +65,8 @@ def caller(entry, plan):
     """A decode-attention call through ``entry`` (q (B, H, D); k, v
     (B, T, Hkv, D); int32 lengths), with ``plan``'s launch where its
     argument list takes one."""
-    with_plan = len(entry.argtypes) == 25
+    with_plan = len(entry.argtypes) >= 25
+    with_lse = len(entry.argtypes) == 26
     codes = {torch.float32: 0, torch.bfloat16: 1}
 
     def run(q, k, v, lengths):
@@ -73,7 +74,8 @@ def caller(entry, plan):
         T, Hkv = k.shape[1], k.shape[2]
         out = torch.empty_like(q)
         args = [q.data_ptr(), k.data_ptr(), v.data_ptr(), lengths.data_ptr(),
-                out.data_ptr(), B, H, Hkv, T, D, *k.stride()[:3],
+                out.data_ptr(), *([None] if with_lse else []), B, H, Hkv,
+                T, D, *k.stride()[:3],
                 *v.stride()[:3], 1.0 / math.sqrt(D), codes[q.dtype],
                 codes[k.dtype]]
         if with_plan:
