@@ -242,7 +242,16 @@ no phase catches its own failure:
               the cache's blocks (``cache_specs``) bit-equal to the bare
               ``decode_step``'s, 24 decode-attention and 49 RMSNorm
               launches a step, no collective sent, and ms a step of both
-              after that warm run, in turns; (b)
+              after that warm run, in turns; jamba-v0.1-52b at full
+              width, depth 8 (7 Mamba layers on their d_inner channels),
+              ``prefill_logits`` at B 1 x S 4096 and 8 decode steps on
+              the blocks bit-equal to the bare path's (7 selective
+              scans, 1 flash, 17 RMSNorm a prefill; 1 decode attention,
+              17 RMSNorm a step); (b) the selective scan on jamba's
+              d_inner 8192 cut 2, 4 and 16 ways at B 1 and B 8 (T 4096,
+              bf16), every block against the whole launch's columns at
+              twice the scan's tolerance, whether the bits are equal,
+              and device µs a launch of a block (CUDA graph); and
               decode attention's log-sum-exp output at qwen's heads (f32
               and bf16): caches of L 4,096 and 32,768 slots cut into 2
               and 4 slot blocks (the last block empty, a second row of
@@ -257,7 +266,11 @@ no phase catches its own failure:
               (f32 logits within 1e-4 of their largest, the same tokens;
               each leaf's f32 gradient within 1e-4 of its norm; with the
               bf16 cast on, the step's loss 1e-3 and gradient norm 1e-2
-              relative), or a line saying it ran on one card.
+              relative), and jamba (depth 8, bf16 weights) and
+              xlstm-125m prefilled and decoded on the blocks in f32
+              against one card (1e-4 of the largest logit, the same
+              tokens, no weight all-gathered over ``model`` but sLSTM's
+              ``r``), or a line saying it ran on one card.
 
 §4 also times flash attention and SDPA at qwen's B 1 x S 32768.  §9 also
 serves the three traced archs with ``respect_deps`` sliced and sliced
@@ -268,7 +281,7 @@ slice rounds, modelled time and cache counters identical.
 The kernels' record counts each kernel's launches on the main paths:
 the decode steps of §5, §16, §18, §19 and §20, the prefills of §7 and
 §18, §21's 20 straight train steps, §22's 3 on the host mesh and §23's
-32 decode steps.
+decode steps and jamba prefill on the blocks.
 The last lines are the kernels' JSON record, ``nvidia-smi``'s line and
 ``{"ok": true, "device": {...}}``.  ``--report PATH`` also writes a
 fuller JSON report (every timing repeat, the profiles' top kernels).
@@ -1030,6 +1043,89 @@ def _greedy(step, prompt, n_new: int):
     return torch.stack(logits), torch.stack(new)
 
 
+#: §23(c)'s Mamba and xLSTM models: arch -> (depth, the weights' dtype;
+#: the compute is f32): jamba at §12's depth in bf16 weights (26.6 GB;
+#: f32 ones and their blocks would not fit a card beside the one-card
+#: reference), xlstm-125m whole in f32.  Prefill (B, S), and the decode's
+#: batch, prompt tokens replayed, greedy steps and cache slots (the
+#: replay reaches the second card's slots of jamba's attention cache)
+TWO_CARD_MODELS = {"jamba-v0.1-52b": (8, torch.bfloat16),
+                   "xlstm-125m": (None, torch.float32)}
+TWO_CARD_MODEL_RUN = ((2, 512), (2, 12, 4, 16))
+
+
+def two_card_models(rank: int, dev, mesh) -> dict:
+    """§23(c)'s jamba and xlstm on rank ``rank`` of the 1 x 2 ``model``
+    mesh ``mesh``: the weights' blocks (``param_specs(mode="serve")``)
+    through the gather hook, ``prefill_logits`` (the selective-scan and
+    flash kernels on the blocks) and a decode over the cache's blocks
+    (``cache_specs``), f32 compute; rank 0 also runs them on the whole
+    weights with no mesh.  Per arch: the largest logit error against one
+    card and the largest logit (rank 0), the tokens' equality, and the
+    all-gathers over ``model`` that give a weight's shape but sLSTM's
+    ``r`` (each rank; must be 0)."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import act_ctx, count_collectives
+    from repro_torch.dist.sharding import (cache_specs, gather_hook,
+                                           param_specs, spec_leaves)
+    from repro_torch.models import transformer as T
+    from repro_torch.pytree import flatten
+    out = {}
+    (B, S), (Bd, n_prompt, n_new, slots) = TWO_CARD_MODEL_RUN
+    for arch, (depth, wdt) in TWO_CARD_MODELS.items():
+        t0 = time.perf_counter()
+        cfg = get_config(arch, "full").replace(dtype="float32")
+        if depth is not None:
+            cfg = cfg.replace(n_layers=depth)
+        if cfg.n_experts:    # a slot for every token at every expert
+            cfg = cfg.replace(capacity_factor=cfg.n_experts / cfg.top_k)
+        params = T.init(cfg, seed=0, device=dev, param_dtype=wdt,
+                        draw_device=dev.type)
+        stree = param_specs(params, mesh, mode="serve")
+        blocks = _tp_blocks(params, spec_leaves(params, stree), mesh)
+        hook = gather_hook(stree)
+        gen = torch.Generator().manual_seed(17)
+        toks = torch.randint(0, cfg.vocab, (B, S), generator=gen).to(dev)
+        prompt = torch.randint(0, cfg.vocab, (Bd, n_prompt),
+                               generator=gen).to(dev)
+        cache = T.init_cache(cfg, Bd, slots, dtype=torch.float32,
+                             device=dev)
+        ctree = cache_specs(cache, mesh)
+        cblocks = _tp_blocks(cache, spec_leaves(cache, ctree), mesh)
+        calls: list = []
+        with act_ctx(dp="data", tp="model", mesh=mesh), torch.no_grad(), \
+                count_collectives(calls):
+            last = T.prefill_logits(blocks, cfg, toks, gather=hook)
+            lg, tok = _greedy(lambda t, pos: T.decode_step(
+                blocks, cfg, t, cblocks, pos, gather=hook,
+                cache_specs=ctree)[0], prompt, n_new)
+        weights = {tuple(t.shape) for kp, t in flatten(params)
+                   if kp[-2:] != ("mixer", "r")}
+        rec = {"weight_gathers_over_model": sum(
+            c[:2] == ("all-gather", "model") and c[2] in weights
+            for c in calls)}
+        del blocks, cblocks
+        if rank == 0:
+            whole = T.init_cache(cfg, Bd, slots, dtype=torch.float32,
+                                 device=dev)
+            with torch.no_grad():
+                last1 = T.prefill_logits(params, cfg, toks)
+                lg1, tok1 = _greedy(lambda t, pos: T.decode_step(
+                    params, cfg, t, whole, pos)[0], prompt, n_new)
+            rec.update({
+                "prefill_max_abs_err": float((last - last1).abs().max()),
+                "prefill_logits_max": float(last1.abs().max()),
+                "decode_max_abs_err": float((lg - lg1).abs().max()),
+                "decode_logits_max": float(lg1.abs().max()),
+                "tokens_equal": bool(torch.equal(tok, tok1))})
+            del whole
+        rec["s"] = time.perf_counter() - t0
+        out[arch] = rec
+        del params, cache
+        torch.cuda.empty_cache()
+    return out
+
+
 def two_card_rank(rank: int, store: str, out_dir: str) -> None:
     """§23(c) on rank ``rank`` of a 1 x 2 ("data", "model") mesh over NCCL
     on cards 0 and 1: qwen1.5-0.5b at full width in f32 (TF32 off) on
@@ -1098,6 +1194,8 @@ def two_card_rank(rank: int, store: str, out_dir: str) -> None:
         res["tokens_equal"] = bool(torch.equal(tok, tok1))
         del whole
     del params, blocks, cache, cblocks
+    torch.cuda.empty_cache()
+    res["models"] = two_card_models(rank, dev, mesh)
 
     opt = AdamWConfig(warmup_steps=5, total_steps=3)
     batch = SyntheticLM(DataConfig(vocab=cfg.vocab, seq_len=1024,
@@ -1193,8 +1291,148 @@ def two_cards(timeout_s: float = 600) -> dict:
     require(r0["weight_gathers_over_model"] == 0
             and r1["weight_gathers_over_model"] == 0,
             "§23(c): a weight was all-gathered over model")
+    for arch, m in r0["models"].items():
+        require(m["tokens_equal"]
+                and m["prefill_max_abs_err"] <= 1e-4 * m["prefill_logits_max"]
+                and m["decode_max_abs_err"] <= 1e-4 * m["decode_logits_max"],
+                f"§23(c) {arch} against one card: {m}")
+        require(m["weight_gathers_over_model"] == 0 and r1["models"][arch][
+            "weight_gathers_over_model"] == 0,
+            f"§23(c) {arch}: a weight but sLSTM's r all-gathered over model")
     del r0["grads"]
     return r0
+
+
+#: §23(a): jamba's prefill (B, S) on the blocks and its decode: the
+#: batch, prompt tokens replayed and greedy steps after them, cache slots
+JAMBA_TP_PREFILL = (1, 4096)
+JAMBA_TP_DECODE = (2, 4, 4, 64)
+
+
+def jamba_blocks(mesh, dev) -> tuple[dict, dict]:
+    """§23(a) for jamba-v0.1-52b at full width, depth cut to 8 (7 Mamba
+    layers, 1 attention layer): bf16 weights drawn on the card, their
+    ``model`` blocks (``param_specs(mode="serve")``, one block each on
+    the world-1 mesh) through the gather hook, and the cache's
+    (``cache_specs``).  One ``prefill_logits`` call and 8 ``decode_step``
+    calls on the blocks, the launch counters set to 0 just before and
+    read just after (7 selective scans, 1 flash and 17 RMSNorm the
+    prefill; 1 decode attention and 17 RMSNorm a decode step), then the
+    same on the bare path: the same bits, no collective sent.  Returns
+    the launches and the record."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.context import act_ctx, count_collectives
+    from repro_torch.dist.sharding import cache_specs, gather_hook, param_specs
+    from repro_torch.kernels import launch_counts, reset_launch_counts
+    from repro_torch.models import transformer as T
+    t0 = time.perf_counter()
+    cfg = get_config("jamba-v0.1-52b", "full").replace(n_layers=8)
+    params = T.init(cfg, seed=0, device=dev, draw_device=dev.type)
+    hook = gather_hook(param_specs(params, mesh, mode="serve"))
+    gen = torch.Generator(device=dev).manual_seed(11)
+    B, S = JAMBA_TP_PREFILL
+    toks = torch.randint(0, cfg.vocab, (B, S), device=dev, generator=gen)
+    Bd, n_prompt, n_new, slots = JAMBA_TP_DECODE
+    prompt = torch.randint(0, cfg.vocab, (Bd, n_prompt), device=dev,
+                           generator=gen)
+    cache_t = T.init_cache(cfg, Bd, slots, device=dev)
+    cache_b = T.init_cache(cfg, Bd, slots, device=dev)
+    ctree = cache_specs(cache_t, mesh)
+    reset_launch_counts()
+    with count_collectives() as coll, \
+            act_ctx(dp="data", tp="model", mesh=mesh), torch.no_grad():
+        last = T.prefill_logits(params, cfg, toks, gather=hook)
+        pre_counts = launch_counts()
+        reset_launch_counts()
+        lg, tok = _greedy(lambda t, pos: T.decode_step(
+            params, cfg, t, cache_t, pos, gather=hook,
+            cache_specs=ctree)[0], prompt, n_new)
+    dec_counts = launch_counts()
+    with torch.no_grad():
+        last1 = T.prefill_logits(params, cfg, toks)
+        lg1, tok1 = _greedy(lambda t, pos: T.decode_step(
+            params, cfg, t, cache_b, pos)[0], prompt, n_new)
+    n_steps = lg.shape[0]
+    equal = {"prefill": torch.equal(last, last1),
+             "decode": torch.equal(lg, lg1) and torch.equal(tok, tok1)}
+    want_pre = {"mamba_scan": 7, "flash_attention": 1, "rmsnorm": 17}
+    want_dec = {"decode_attention": n_steps, "rmsnorm": 17 * n_steps}
+    print(f"[tp] (a) jamba-v0.1-52b full width, depth 8, bf16, on the "
+          f"world-1 mesh's blocks through the hook: prefill_logits B {B} x "
+          f"S {S} bit-equal to the bare path's: {equal['prefill']} "
+          f"(launches {pre_counts}); {n_steps} decode steps (B {Bd}, "
+          f"{n_prompt} prompt tokens replayed, {n_new} greedy, a "
+          f"{slots}-slot cache) bit-equal: {equal['decode']} (launches "
+          f"{dec_counts}); collectives sent {dict(coll)}; "
+          f"{time.perf_counter() - t0:.1f} s")
+    require(all(equal.values()) and not coll
+            and pre_counts == {k: want_pre.get(k, 0) for k in pre_counts}
+            and dec_counts == {k: want_dec.get(k, 0) for k in dec_counts},
+            f"§23(a) jamba on the blocks: bits {equal}, collectives "
+            f"{dict(coll)}, launches {pre_counts} / {dec_counts}")
+    counts = {k: pre_counts[k] + dec_counts[k] for k in pre_counts}
+    del params, cache_t, cache_b
+    return counts, {"prefill_bits_equal": equal["prefill"],
+                    "decode_bits_equal": equal["decode"],
+                    "decode_steps": n_steps, "launches": counts,
+                    "phase_s": time.perf_counter() - t0}
+
+
+def scan_blocks(dev) -> dict:
+    """§23(b): the selective-scan kernel on the channel blocks a rank of a
+    ``model`` axis scans, jamba's d_inner 8192 cut 2, 4 and 16 ways, at
+    row 5's shapes (B 1 and B 8, T 4096, S 16, bf16; B and C strided, as
+    slices of the (B, T, 288) projection, the path's layout).  Every
+    block against the whole-width launch's columns at the doubled scan
+    tolerance, and whether the bits are equal (``scan_plan`` may take 8
+    states a thread at the whole width and 4 on a block); device µs a
+    launch of one block (CUDA graph of 50) for each width."""
+    from repro_torch.kernels import mamba_scan, scan_plan
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(13)
+
+    def randn(*shape, dtype=torch.float32):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    smi = nvidia_smi()
+    tol = 2 * TOL[torch.bfloat16]
+    out = {"nvidia_smi": smi, "tol": tol, "cases": []}
+    T_, Dc, S = 4096, 8192, 16
+    for B in (1, 8):
+        x, dt, bm, cm, a, d = scan_inputs(randn, B, T_, Dc, S,
+                                          torch.bfloat16, strided=True)
+        whole = mamba_scan(x, dt, bm, cm, a, d)
+        for n in (1, 2, 4, 16):
+            c = Dc // n
+            plan = scan_plan(B, T_, c, S, torch.bfloat16, sms)
+            errs, equal = [], True
+            for r in range(n):
+                sl = slice(r * c, (r + 1) * c)
+                args = (x[..., sl].contiguous(), dt[..., sl].contiguous(),
+                        bm, cm, a[sl].contiguous(), d[sl].contiguous())
+                y = mamba_scan(*args)
+                want = whole[..., sl]
+                errs.append(float((y.float() - want.float()).abs().max()))
+                equal = equal and torch.equal(y, want)
+                require(torch.allclose(y.float(), want.float(), rtol=tol,
+                                       atol=tol),
+                        f"§23(b) mamba_scan B {B} block {r} of {n}: "
+                        f"{errs[-1]:.3e} from the whole launch's columns")
+                if r == 0:
+                    us = graph_us(lambda: mamba_scan(*args))
+            case = {"B": B, "blocks": n, "Dc": c, "states": plan.states,
+                    "grid": list(plan.grid), "max_abs_err": max(errs),
+                    "bits_equal": equal, "device_us_per_launch": us}
+            out["cases"].append(case)
+            print(f"[tp] (b) mamba_scan x, dt ({B}, {T_}, {c}) bf16 (Dc "
+                  f"{Dc} cut {n} ways; B, C strided): every block against "
+                  f"the whole launch's columns max abs err {max(errs):.3e} "
+                  f"(tol {tol:g}), bits equal: {equal}; plan {plan.states} "
+                  f"states a thread, grid {plan.grid}; device "
+                  f"{us:.1f} us per launch (CUDA graph of 50) on {smi}")
+        del x, dt, bm, cm, a, d, whole, args, y
+    out["phase_s"] = time.perf_counter() - t0
+    return out
 
 
 def tp_phase(report: dict, dev) -> dict:
@@ -1204,14 +1442,18 @@ def tp_phase(report: dict, dev) -> dict:
     greedy) on the weights' blocks and the cache's (``cache_specs``)
     through the per-layer gather hook against the bare ``decode_step``:
     the same bits, and no collective sent; then ms a step of both, in
-    turns, each going first in half of them.  (b) Decode attention's log-sum-exp output at qwen's heads: a
+    turns, each going first in half of them; and jamba
+    (:func:`jamba_blocks`).  (b) Decode attention's log-sum-exp output at qwen's heads: a
     cache of L 4,096 and 32,768 slots cut into 2 and 4 slot blocks (the
     last block empty, and a second row of length 0), each block launched
     with ``lse``, merged, against one launch on the whole cache and
     against the plain version (f32 2e-5, bf16 2e-2); device µs per
-    launch with and without ``lse`` at L 512 and 32,768.  (c) The decode
-    and one train step on a 1 x 2 mesh over NCCL against one card, where
-    the machine has two cards.  Returns the launches of (a)'s decode."""
+    launch with and without ``lse`` at L 512 and 32,768; and the selective
+    scan on channel blocks (:func:`scan_blocks`).  (c) The decode and one
+    train step on a 1 x 2 mesh over NCCL against one card, and jamba's
+    and xlstm's prefill and decode (:func:`two_card_models`), where the
+    machine has two cards.  Returns the launches of (a)'s decodes and
+    jamba's prefill."""
     from repro_torch.configs import get_config
     from repro_torch.dist.context import act_ctx, count_collectives
     from repro_torch.dist.sharding import cache_specs, gather_hook, param_specs
@@ -1288,6 +1530,15 @@ def tp_phase(report: dict, dev) -> dict:
     rep["decode"] = {"steps": n_steps, "launches": dec_counts,
                      "ms_per_step": step_ms}
     del params, cache_t, cache_b
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (a) jamba at full width, §12's depth (7 Mamba layers on their
+    # d_inner channels, one attention layer, MoE every other layer): one
+    # prefill and 8 decode steps on the blocks against the bare path
+    jamba_counts, rep["jamba"] = jamba_blocks(mesh, dev)
+    for k, v in jamba_counts.items():
+        dec_counts[k] = dec_counts.get(k, 0) + v
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1373,6 +1624,10 @@ def tp_phase(report: dict, dev) -> dict:
     rep["lse"] = lse_rep
     torch.cuda.empty_cache()
 
+    # (b) the selective scan on jamba's d_inner cut 2, 4 and 16 ways
+    rep["scan_blocks"] = scan_blocks(dev)
+    torch.cuda.empty_cache()
+
     # (c) two cards, where there are two
     n_cards = torch.cuda.device_count()
     if n_cards >= 2:
@@ -1387,6 +1642,17 @@ def tp_phase(report: dict, dev) -> dict:
               f"{r0['train']} against one card's {r0['train_one_card']}; "
               f"f32 gradients within {r0['grad_worst_ratio']:.3e}"
               f" of a leaf's norm (worst {r0['grad_worst_leaf']})")
+        for arch, m in r0["models"].items():
+            print(f"[tp] (c) {arch} on the 1 x 2 mesh's blocks, f32 compute"
+                  f" ({TWO_CARD_MODELS[arch][1]} weights): prefill_logits "
+                  f"B x S {TWO_CARD_MODEL_RUN[0]} max abs err "
+                  f"{m['prefill_max_abs_err']:.3e} against one card "
+                  f"(logits up to {m['prefill_logits_max']:.3f}), decode "
+                  f"{m['decode_max_abs_err']:.3e} (up to "
+                  f"{m['decode_logits_max']:.3f}), tokens equal "
+                  f"{m['tokens_equal']}; weights all-gathered over model "
+                  f"(sLSTM's r aside) {m['weight_gathers_over_model']}; "
+                  f"{m['s']:.1f} s")
         rep["two_cards"] = r0
     else:
         print(f"[tp] (c) not run: this machine has {n_cards} card; the 1 x 2 "
@@ -3529,7 +3795,7 @@ def main(argv=None) -> int:
     # (§5, §16, §18), qwen and mixtral prefills (§7, §18), the sliced,
     # incremental front end's decode steps (§19), xlstm's decode steps
     # (§20), qwen's train steps (§21, and §22's on the host mesh) and
-    # §23's decode steps on the blocks
+    # §23's decode steps and jamba's prefill on the blocks
     sources = {"rmsnorm": ("src/repro_torch/csrc/rmsnorm.cu",
                            "src/repro/kernels/rmsnorm.py:26",
                            serve_counts["rmsnorm"]
@@ -3551,13 +3817,15 @@ def main(argv=None) -> int:
                                    "src/repro/kernels/flash_attention.py:79",
                                    prefill_counts["flash_attention"]
                                    + mixtral_prefill_counts[
-                                       "flash_attention"]),
+                                       "flash_attention"]
+                                   + tp_counts["flash_attention"]),
                "event_scan": ("src/repro_torch/csrc/event_scan.cu",
                               "src/repro/kernels/event_scan.py:295",
                               space_counts["event_scan"]),
                "mamba_scan": ("src/repro_torch/csrc/mamba_scan.cu",
                               "src/repro/kernels/mamba_scan.py:63",
-                              jamba_counts["mamba_scan"])}
+                              jamba_counts["mamba_scan"]
+                              + tp_counts["mamba_scan"])}
     line = {"kernels": [
         {"name": nm, "route": "cuda", "source": src, "replaces": rep,
          "launches": n, "max_abs_err": max(errs[nm]),

@@ -286,6 +286,21 @@ class _OnMeta(torch.autograd.Function):
         return out, None, None, None
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """The identity, whose backward hands on a contiguous gradient: the
+    all-gather's backward sends its pieces' gradients as they come, and
+    gloo sends a permuted one's storage in the wrong order (sLSTM's
+    ``r``, whose gradient arrives through a permute)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
 def _group(a: str):
     m = mesh()
     if not _is_device_mesh(m):
@@ -335,8 +350,8 @@ def all_gather(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
             shape[dim] *= n
             x = _OnMeta.apply(x, shape, "reduce-scatter", a)
         else:
-            x = torch.cat(_nnf().all_gather(x.contiguous(), group=_group(a)),
-                          dim)
+            x = torch.cat([_ContiguousGrad.apply(t) for t in _nnf().all_gather(
+                x.contiguous(), group=_group(a))], dim)
         _count("all-gather", x, a)
     return x
 
@@ -363,15 +378,22 @@ def reduce_scatter(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     return x
 
 
-def all_to_all(x: torch.Tensor, axis: str) -> torch.Tensor:
+def all_to_all(x: torch.Tensor, axis: str, in_splits=None,
+               out_splits=None) -> torch.Tensor:
     """Block ``j`` of ``x``'s leading dim (one block a rank of ``axis``)
-    goes to rank ``j``; block ``j`` of the result came from rank ``j``."""
+    goes to rank ``j``; block ``j`` of the result came from rank ``j``.
+    ``in_splits`` / ``out_splits``: the blocks' lengths (rows of dim 0)
+    sent to and received from each rank, where they are not equal."""
     if axis_size(axis) == 1:
         return x
+    shape = list(x.shape)
+    if out_splits is not None:
+        shape[0] = sum(out_splits)
     if x.device.type == "meta":
-        x = _OnMeta.apply(x, x.shape, "all-to-all", axis)
+        x = _OnMeta.apply(x, shape, "all-to-all", axis)
     else:
-        x = _nnf().all_to_all_single(torch.empty_like(x), x.contiguous(),
+        x = _nnf().all_to_all_single(x.new_empty(shape), x.contiguous(),
+                                     out_splits, in_splits,
                                      group=_group(axis))
     _count("all-to-all", x, axis)
     return x

@@ -64,6 +64,7 @@ __all__ = [
     "param_groups",
     "layer_spec_leaves",
     "gather_hook",
+    "under",
     "serve_weights_resident",
 ]
 
@@ -270,23 +271,33 @@ def layer_spec_leaves(params, spec_tree) -> dict[tuple, list]:
             for path in param_groups(params)}
 
 
+def under(kp: tuple, whole) -> bool:
+    """Whether the leaf at key path ``kp`` lies under one of ``whole``'s
+    keys (a top-level key) or key paths (tuples)."""
+    return any(tuple(kp[:len(w)]) == w if isinstance(w, tuple)
+               else kp[0] == w for w in whole)
+
+
 def gather_hook(spec_tree, keep="model"):
     """The per-layer gather of a rank program whose parameters are its
     blocks placed by ``spec_tree``: ``hook(blocks, path, whole=())``
     returns the group at ``path`` (:func:`param_groups`; any subtree's
     key path) all-gathered over every spec entry but ``keep`` (the data
     axes, by default: its ``model`` blocks are kept), and the subtrees
-    under the keys in ``whole`` over every entry (``model`` too).  Which
-    leaves of a group it gathers, and over which dims, is worked out at
-    the group's first call; a group with nothing to gather (every group
-    on one rank, or ``mode="serve"`` blocks) is returned as it is."""
+    under the keys or key paths in ``whole`` (:func:`under`) over every
+    entry (``model`` too).  Which leaves of a group it gathers, and over
+    which dims, is worked out at the group's first call and kept in
+    ``hook.plans`` (``(path, whole)`` -> ``[(leaf index in flatten order,
+    [(dim, mesh axes), ...]), ...]``); a group with nothing to gather
+    (every group on one rank, or ``mode="serve"`` blocks) is returned as
+    it is."""
     plans: dict = {}
 
     def plan(blocks, path, whole):
         out = []
         for i, ((kp, _), s) in enumerate(zip(flatten(blocks), spec_leaves(
                 blocks, spec_at(spec_tree, path)))):
-            k = None if kp[0] in whole else keep
+            k = None if under(kp, whole) else keep
             dims = [(d, e) for d, e in enumerate(s)
                     if e is not None and e != k]
             if dims:
@@ -306,6 +317,7 @@ def gather_hook(spec_tree, keep="model"):
                 leaves[i] = all_gather(leaves[i], e, dim=d)
         return unflatten(blocks, leaves)
 
+    hook.plans = plans
     return hook
 
 

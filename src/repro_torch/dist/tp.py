@@ -1,7 +1,8 @@
 """Tensor parallelism on this rank's ``model`` blocks: the dense layers,
 norms, embedding and head of a rank program whose weights are placed by
 :func:`repro_torch.dist.sharding.param_specs` (the placement the
-reference's SPMD partitioner gives its ``constrain``-ed program).
+reference's SPMD partitioner gives its ``constrain``-ed program), and
+the re-cuts and cache views the Mamba and xLSTM mixers run on.
 
 A weight's ``model`` entry (:func:`weight_spec`: the largest dimension
 that divides the bound ``tp`` axis) decides the program:
@@ -24,6 +25,16 @@ then counts it once).  Norms: a split scale gives this rank's block of
 the normalised features, the statistics taken over the whole
 (replicated) row.
 
+A dense layer whose output is groups of features one after another
+(Mamba's and mLSTM's [x | z], a GLU's [u | g]) gives this rank's block of
+each group through :func:`tp_dense_groups`: the placement's contiguous
+output blocks do not line up with the groups, so one all-to-all
+(:func:`regroup`) re-cuts the weight's block or the output's.  A decode
+step views a cache's blocks along the dim its program needs
+(:func:`cache_as`, :func:`cache_put`: the blocks themselves, a re-cut or
+a gather), and :func:`off` runs a layer's one-device program on whole
+weights.
+
 The collectives are :mod:`repro_torch.dist.context`'s, whose backwards
 are exact adjoints, so gradients flow to each rank's blocks.  With no
 ``tp`` axis bound, or a ``model`` axis of one rank, every function here
@@ -34,6 +45,7 @@ itself, bit for bit.
 from __future__ import annotations
 
 import functools
+from contextlib import contextmanager
 
 import torch
 import torch.nn.functional as F
@@ -41,9 +53,10 @@ import torch.nn.functional as F
 from . import context as dctx
 from .sharding import PartitionSpec, tp_spec
 
-__all__ = ["tp_axis", "weight_spec", "model_dim", "tp_dense", "tp_norm",
-           "full", "rank_block", "as_block", "dense_blocks",
-           "reblock", "tp_embed"]
+__all__ = ["tp_axis", "off", "weight_spec", "model_dim", "tp_dense",
+           "tp_dense_groups", "tp_norm", "full", "rank_block", "as_block",
+           "dense_blocks", "reblock", "regroup", "to_dim",
+           "cache_dims", "cache_as", "cache_put", "tp_embed"]
 
 
 def tp_axis() -> tuple[int, int, str | None]:
@@ -61,6 +74,19 @@ def _bind_tp() -> tuple[int, int, str | None]:
     m = dctx.axis_size(ax)
     t = bound["tpx"] = (1, 0, ax) if m == 1 else (m, dctx.axis_index(ax), ax)
     return t
+
+
+@contextmanager
+def off():
+    """The layers called inside run their one-device program, as with no
+    ``tp`` axis bound: a mixer whose width ``model`` does not divide,
+    gathered whole on every rank."""
+    s = dctx._state.v
+    prev, s["tpx"] = s["tpx"], (1, 0, None)
+    try:
+        yield
+    finally:
+        s["tpx"] = prev
 
 
 def weight_spec(shape) -> PartitionSpec:
@@ -151,6 +177,36 @@ def tp_dense(p: dict, x: torch.Tensor, spec=None, *, shape=None,
     return y, out_block
 
 
+def tp_dense_groups(p: dict, x: torch.Tensor, shape, groups: int, *,
+                    x_block: bool = False) -> tuple[torch.Tensor, bool]:
+    """``x @ W + b`` for ``W`` of global ``shape`` (k, groups * n) whose
+    output features are ``groups`` equal groups, one after another
+    (Mamba's and mLSTM's [x | z], a GLU's [u | g]): where ``model``
+    divides n, this rank's block of n / m features of each group, the
+    groups in order, so that the groups' blocks line up.  The placement
+    cuts the output dim into m contiguous blocks, which do not (on 2
+    ranks rank 0 holds all of x, rank 1 all of z), so one all-to-all
+    (:func:`regroup`) re-cuts the weight's block or the output's,
+    whichever is smaller: the weight's (k rows) for a long input, the
+    output's (x's rows) for a decode step.  Where ``model`` does not
+    divide n, the whole output.  Returns ``(y, is_block)``."""
+    m = tp_axis()[0]
+    k, N = shape
+    if m == 1 or (N // groups) % m:
+        return tp_dense(p, x, shape=shape, x_block=x_block)
+    rows = x.numel() // x.shape[-1]
+    if rows * x.element_size() <= k * p["w"].element_size():
+        # W is split (m divides N): its output's contiguous block
+        y, _ = tp_dense(p, x, shape=shape, x_block=x_block, keep_block=True)
+        return regroup(y, -1, groups), True
+    x = full(x, x_block)
+    y = x @ regroup(as_block(p["w"], shape, 1), 1, groups).to(x.dtype)
+    if "b" in p:
+        b = regroup(as_block(p["b"], (N,), 0), 0, groups)
+        y = y + b.to(y.dtype)
+    return y, True
+
+
 def tp_norm(p: dict, x: torch.Tensor, kind: str
             ) -> tuple[torch.Tensor, bool]:
     """The norm of the replicated rows ``x``: the whole where its scale is
@@ -212,6 +268,63 @@ def reblock(w: torch.Tensor, have: int, want: int) -> torch.Tensor:
     send = torch.stack(w.chunk(m, want))
     recv = dctx.all_to_all(send, ax)
     return torch.cat(list(recv.unbind(0)), dim=have)
+
+
+def regroup(t: torch.Tensor, dim: int, groups: int) -> torch.Tensor:
+    """``t``, this rank's contiguous block along ``dim`` of a dim that
+    holds ``groups`` equal groups one after another -> this rank's block
+    of each group, the groups in order (:func:`tp_dense_groups`).  Each
+    of the block's ``groups`` pieces goes to the rank whose block of its
+    group it is: one all-to-all, of the block's own size."""
+    m, r, ax = tp_axis()
+    if m == 1 or groups == 1:
+        return t
+    dim %= t.dim()
+    c = t.shape[dim] // groups
+    # piece k of this block is piece P = r * groups + k of the whole:
+    # group P // m, rank P % m's block of it
+    dest = [(r * groups + k) % m for k in range(groups)]
+    order = sorted(range(groups), key=dest.__getitem__)
+    x = t.movedim(dim, 0)
+    send = torch.cat([x[k * c:(k + 1) * c] for k in order])
+    sent = [c * dest.count(j) for j in range(m)]
+    got = [c * sum((s * m + r) // groups == q for s in range(groups))
+           for q in range(m)]
+    return dctx.all_to_all(send, ax, sent, got).movedim(0, dim)
+
+
+def to_dim(t: torch.Tensor, have: int | None,
+           want: int | None) -> torch.Tensor:
+    """``t``, this rank's ``model`` block along ``have`` (None: whole), as
+    its block along ``want`` (None: whole): ``t`` itself, a slice, an
+    all-gather, or an all-to-all (:func:`reblock`)."""
+    if have == want or tp_axis()[0] == 1:
+        return t
+    if want is None:
+        return dctx.all_gather(t, tp_axis()[2], dim=have)
+    if have is None:
+        return rank_block(t, want)
+    return reblock(t, have, want)
+
+
+def cache_dims(cache: dict, cspec) -> dict:
+    """Each cache leaf's ``model`` dim by ``cspec`` (``cache_specs``'s
+    entries for one layer; None: every leaf whole)."""
+    return {k: model_dim(cspec[k]) if cspec else None for k in cache}
+
+
+def cache_as(cache: dict, have: dict, want: dict) -> dict:
+    """A layer's cache leaves (blocks along ``have``) as blocks along
+    ``want`` (None: whole), for a decode step to update in place."""
+    return {k: to_dim(v, have[k], want[k]) for k, v in cache.items()}
+
+
+def cache_put(cache: dict, view: dict, have: dict, want: dict) -> None:
+    """Write a step's state ``view`` (:func:`cache_as`) back into the
+    cache's blocks where it is not the blocks themselves."""
+    for k, v in cache.items():
+        if have[k] != want[k]:
+            v.copy_(to_dim(view[k], want[k], have[k]))
 
 
 def tp_embed(w: torch.Tensor, tokens: torch.Tensor, shape,

@@ -21,7 +21,8 @@ nothing is allocated and no process group is needed.
   on the same blocks and rank 0's blocks of the cache placed by
   ``cache_specs``: attention over its slot block (GQA merges the ranks'
   decode attention by its log-sum-exp, MLA runs the partitioned
-  softmax), the Mamba and xLSTM states gathered for their layer's step.
+  softmax), Mamba on its state's channel blocks in place, the xLSTM
+  states gathered for their layer's step.
 
 The record keeps the reference's keys:
 
@@ -30,13 +31,19 @@ The record keeps the reference's keys:
   key) are the buffers that rank 0's program gathers beside its blocks
   and may hold at once: the largest parameter group's gathered blocks
   (the embedding, a layer, the final norm or the head; over the data
-  axes in a train cell, in bf16 where the step casts them, and whole
-  for the Mamba and xLSTM mixers, which have no tensor-parallel form),
-  twice in a train cell (the forward's and the backward's recompute);
-  the largest layer's gathered cache blocks in a decode cell (Mamba and
-  xLSTM states, or an attention cache split on neither its slots nor its
-  kv heads; none in the 32k cells); and the largest all-gather of an
-  activation over ``model``.  ``gradient_bytes`` (the port's own key)
+  axes in a train cell, in bf16 where the step casts them, and the
+  leaves under ``T.whole_keys`` whole: sLSTM's ``r``, or a Mamba or
+  xLSTM mixer whose width ``model`` does not divide), twice in a train
+  cell (the forward's and the backward's recompute); the largest layer's
+  gathered cache blocks in a decode cell (xLSTM states, a whole mixer's,
+  or an attention cache split on neither its slots nor its kv heads; no
+  Mamba state); and the largest all-gather of an activation over
+  ``model``.  On ``meta`` the Mamba scan's plain twin and sLSTM's step
+  loop run no step loop (``models.ssm._scan_xla``, ``SLSTM.fwd``): the
+  FLOP count keeps their products (the scan's h·C, sLSTM's recurrent
+  GEMMs), as the loops' would; the kernel path's selective scan counts
+  none (``mamba_scan_plain`` on ``meta`` returns the shape only).
+  ``gradient_bytes`` (the port's own key)
   are a train cell's f32 gradients of rank 0's blocks (twice with
   ``accum`` above 1: the accumulator and one microbatch's), 0 in a
   serving cell.  ``peak_bytes`` is argument plus output less aliases
@@ -72,7 +79,7 @@ from ..dist import tp
 from ..dist.sharding import (PartitionSpec, batch_spec, cache_specs,
                              gather_hook, layer_spec_leaves, local_shape,
                              param_specs, serve_weights_resident, spec_at,
-                             spec_leaves)
+                             spec_leaves, under)
 from ..models import transformer as T
 from ..optim.adamw import AdamWConfig
 from ..pytree import flatten, unflatten
@@ -129,14 +136,14 @@ def _kept(spec, keep) -> PartitionSpec:
 def _group_bytes(cfg, params, stree, mesh, cast: bool) -> float:
     """The largest parameter group's gathered bytes (module docstring):
     each leaf its spec splits over the data axes at its data-gathered
-    shape, a Mamba or xLSTM mixer's leaves whole; ``cast``: >= 2-D f32
+    shape, the leaves under ``T.whole_keys`` whole; ``cast``: >= 2-D f32
     leaves in bf16, as the train step gathers them."""
     best = 0.0
     for path, specs in layer_spec_leaves(params, stree).items():
         whole = T.whole_keys(cfg, path[1]) if path[0] == "layers" else ()
         total = 0.0
         for (lp, t), s in zip(flatten(spec_at(params, path)), specs):
-            kept = _kept(s, None if lp[0] in whole else "model")
+            kept = _kept(s, None if under(lp, whole) else "model")
             shape = local_shape(t.shape, kept, mesh)
             if shape == local_shape(t.shape, s, mesh):
                 continue
@@ -150,14 +157,19 @@ def _group_bytes(cfg, params, stree, mesh, cast: bool) -> float:
 def _cache_bytes(cfg, cache, ctree, mesh, keep) -> float:
     """The largest layer's cache blocks that ``decode_step`` gathers over
     ``model`` for the step (module docstring); ``keep``: the batch's
-    entry."""
+    entry.  A Mamba layer's are its channel blocks, updated in place
+    (a block along another dim is re-cut by an all-to-all, not
+    gathered); an xLSTM layer's states, and those of a mixer that runs
+    whole, are gathered."""
     best = 0.0
     for i, layer in enumerate(cache["layers"]):
         dims = {k: tp.model_dim(s) for k, s in ctree["layers"][i].items()}
         split = set(dims.values())
         local = {1, 2} if "k" in layer else {1}
-        if split == {None} or (cfg.layer_kind(i) == "attn"
-                               and len(split) == 1 and split <= local):
+        kind = cfg.layer_kind(i)
+        if split == {None} or (kind == "attn" and len(split) == 1
+                               and split <= local) or (
+                kind == "mamba" and not T.whole_mixer(cfg, i)):
             continue
         best = max(best, sum(
             math.prod(local_shape(t.shape, _kept(ctree["layers"][i][k],

@@ -39,9 +39,15 @@ a hook (:func:`repro_torch.dist.sharding.gather_hook`) that turns one
 group of blocks (the embedding, a layer, the final norm, the head) into
 its data-gathered blocks where it is used: inside a layer's
 ``torch.utils.checkpoint``, so autograd saves blocks only and the
-backward's recompute gathers again.  Mamba and xLSTM mixers have no
-tensor-parallel form: the hook gathers their weights whole (``model``
-too), and ``decode_step`` gathers their cache blocks for the step.
+backward's recompute gathers again.  Mamba and xLSTM mixers run on their
+blocks too (:mod:`.ssm`, :mod:`.xlstm`): Mamba on this rank's
+``d_inner`` channels, its decode on the state's channel blocks in
+place; the xLSTM projections on their blocks, their recurrences whole,
+sLSTM's recurrent ``r`` gathered whole a layer call (:func:`whole_keys`)
+and the xLSTM states gathered for a decode step.  A Mamba or xLSTM mixer
+whose width the ``model`` axis does not divide is gathered whole (its
+weights, and its cache for a decode step) and runs its one-device
+program on every rank.
 """
 
 from __future__ import annotations
@@ -151,10 +157,24 @@ def _zero_aux(device) -> dict:
             for name in ("moe_lb_loss", "moe_z_loss", "moe_drop_frac")}
 
 
-def whole_keys(cfg: ModelConfig, i: int) -> tuple[str, ...]:
-    """The keys of layer ``i`` that the gather hook gathers whole (the
-    mixers without a tensor-parallel form)."""
-    return ("mixer",) if cfg.layer_kind(i) != "attn" else ()
+def whole_mixer(cfg: ModelConfig, i: int) -> bool:
+    """Whether layer ``i``'s mixer runs whole on every rank: a Mamba or
+    xLSTM mixer whose width (``tp_width``) the bound ``model`` axis does
+    not divide."""
+    m = tp.tp_axis()[0]
+    if m == 1 or cfg.layer_kind(i) == "attn":
+        return False
+    return _mixer(cfg, i).tp_width(cfg) % m != 0
+
+
+def whole_keys(cfg: ModelConfig, i: int) -> tuple:
+    """The keys (or key paths) of layer ``i`` that the gather hook gathers
+    whole, over ``model`` too: a mixer that runs whole
+    (:func:`whole_mixer`), and sLSTM's recurrent ``r``, which its step
+    loop needs for every head."""
+    if whole_mixer(cfg, i):
+        return ("mixer",)
+    return (("mixer", "r"),) if cfg.layer_kind(i) == "slstm" else ()
 
 
 def _ff(p: dict, cfg: ModelConfig, x: torch.Tensor):
@@ -179,7 +199,12 @@ def _apply_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor, cos,
                                x_block=blk)
     else:
         kw = {"impl": impl} if kind == "mamba" else {}
-        y = _mixer(cfg, i).fwd(p["mixer"], cfg, tp.full(h, blk), **kw)
+        if whole_mixer(cfg, i):
+            with tp.off():
+                y = _mixer(cfg, i).fwd(p["mixer"], cfg, tp.full(h, blk),
+                                       **kw)
+        else:
+            y = _mixer(cfg, i).fwd(p["mixer"], cfg, h, x_block=blk, **kw)
     x = x + y
     if "norm2" in p:
         y, moe_aux = _ff(p, cfg, x)
@@ -394,30 +419,27 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int,
 
 def _decode_whole_cache(mixer, p: dict, cfg: ModelConfig, h: torch.Tensor,
                         c: dict, pos: int, cspec) -> tuple[torch.Tensor, dict]:
-    """A mixer with no tensor-parallel form (Mamba, xLSTM) on its cache's
+    """A mixer that runs whole (:func:`whole_mixer`) on its cache's
     blocks: the ``model``-split dims gathered for the step, the updated
     state cut back into the blocks in place."""
-    dims = {k: tp.model_dim(cspec[k]) if cspec else None for k in c}
-    if all(d is None for d in dims.values()):
-        return mixer.decode(p, cfg, h, c, pos)
-    ax = tp.tp_axis()[2]
-    whole = {k: v if dims[k] is None else dctx.all_gather(v, ax, dim=dims[k])
-             for k, v in c.items()}
-    y, new = mixer.decode(p, cfg, h, whole, pos)
-    for k, v in c.items():
-        v.copy_(new[k] if dims[k] is None else tp.rank_block(new[k], dims[k]))
+    have = tp.cache_dims(c, cspec)
+    want = dict.fromkeys(c)
+    whole = tp.cache_as(c, have, want)
+    with tp.off():
+        y, whole = mixer.decode(p, cfg, h, whole, pos)
+    tp.cache_put(c, whole, have, want)
     return y, c
 
 
 def _decode_layer(p: dict, cfg: ModelConfig, i: int, x: torch.Tensor,
                   c: dict, pos: int, cspec=None) -> tuple[torch.Tensor, dict]:
     h, blk = tp.tp_norm(p["norm1"], x, cfg.norm)
-    if cfg.layer_kind(i) == "attn":
-        y, c = _mixer(cfg, i).decode(p["mixer"], cfg, h, c, pos,
-                                     x_block=blk, cspec=cspec)
-    else:
+    if whole_mixer(cfg, i):
         y, c = _decode_whole_cache(_mixer(cfg, i), p["mixer"], cfg,
                                    tp.full(h, blk), c, pos, cspec)
+    else:
+        y, c = _mixer(cfg, i).decode(p["mixer"], cfg, h, c, pos,
+                                     x_block=blk, cspec=cspec)
     x = x + y
     if "norm2" in p:
         x = x + _ff(p, cfg, x)[0]

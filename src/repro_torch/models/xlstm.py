@@ -16,6 +16,22 @@ are plain PyTorch, differentiable by autograd.  ``ln_scale`` (both
 blocks) and sLSTM's recurrent ``r`` stay float32, as the reference
 keeps them; the projections take the given dtype.  ``decode`` updates
 the cache in place and returns it, as the port's other mixers do.
+
+Under tensor parallelism (a ``tp`` axis bound, the weights this rank's
+``model`` blocks as ``param_specs`` places them: :mod:`repro_torch.dist.
+tp`) every projection runs on its blocks and no weight is gathered but
+sLSTM's ``r``: mLSTM's ``w_up`` gives this rank's block of both x and z
+(one all-to-all re-cuts the [x | z] columns), ``wq``/``wk``/``wv``/
+``w_if`` are row-parallel (q, k, v and the gates all-reduced whole),
+``ln_scale``, the z gate and ``w_down`` (row-parallel) work on this
+rank's block of the inner features; sLSTM's ``w_x`` output is gathered
+whole, its ``ln_scale`` and GeGLU FF run on blocks.  The recurrences
+(mLSTM's chunkwise form and its decode, sLSTM's step loop) run whole on
+every rank: xlstm-125m's 4 heads do not split over a 16-wide ``model``
+axis, so what they need whole is an activation or a state (gathered for
+a decode step where ``cache_specs`` splits it) and sLSTM's ``r``, which
+the gather hook gathers whole once a layer call
+(:func:`repro_torch.models.transformer.whole_keys`).
 """
 
 from __future__ import annotations
@@ -25,7 +41,8 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .common import ModelConfig, act_fn, dense, make_dense, normal
+from ..dist import tp
+from .common import ModelConfig, act_fn, make_dense, normal
 
 __all__ = ["MLSTM", "SLSTM"]
 
@@ -37,6 +54,11 @@ def _proj_dims(cfg: ModelConfig) -> tuple[int, int]:
     di = int(cfg.d_model * cfg.xlstm_proj_factor)
     di = -(-di // cfg.n_heads) * cfg.n_heads
     return di, di // cfg.n_heads
+
+
+def _ff_dim(cfg: ModelConfig) -> int:
+    """sLSTM's post-up-projection FF width (proj factor 4/3)."""
+    return int(cfg.d_model * 4 / 3)
 
 
 def _head_norm(h: torch.Tensor) -> torch.Tensor:
@@ -67,25 +89,50 @@ class MLSTM:
         }
 
     @staticmethod
+    def tp_width(cfg: ModelConfig) -> int:
+        """The width whose blocks a rank computes on: the inner di."""
+        return _proj_dims(cfg)[0]
+
+    @staticmethod
+    def _up(p: dict, cfg: ModelConfig, x: torch.Tensor, x_block: bool):
+        """x (B, S, d) -> xu, z (B, S, di), or this rank's blocks of both
+        under tensor parallelism."""
+        di, _ = _proj_dims(cfg)
+        xz, _ = tp.tp_dense_groups(p["w_up"], x, (cfg.d_model, 2 * di), 2,
+                                   x_block=x_block)
+        return xz.chunk(2, dim=-1)
+
+    @staticmethod
     def _qkv_gates(p: dict, cfg: ModelConfig, xu: torch.Tensor):
-        B, S, di = xu.shape
+        """xu (B, S, di), or this rank's block of it -> q, k, v (B, S, H,
+        hd) and the gates' pre-activations (B, S, H) f32, whole."""
+        B, S = xu.shape[:2]
         H = cfg.n_heads
-        hd = di // H
-        q = dense(p["wq"], xu).reshape(B, S, H, hd)
-        k = dense(p["wk"], xu).reshape(B, S, H, hd) / math.sqrt(hd)
-        v = dense(p["wv"], xu).reshape(B, S, H, hd)
-        gates = dense(p["w_if"], xu).float()                   # (B,S,2H)
+        di, hd = _proj_dims(cfg)
+        split = tp.tp_axis()[0] > 1
+
+        def proj(name, width):
+            return tp.tp_dense(p[name], xu, shape=(di, width),
+                               x_block=split)[0]
+        q = proj("wq", di).reshape(B, S, H, hd)
+        k = proj("wk", di).reshape(B, S, H, hd) / math.sqrt(hd)
+        v = proj("wv", di).reshape(B, S, H, hd)
+        gates = proj("w_if", 2 * H).float()                    # (B,S,2H)
         return q, k, v, gates[..., :H], gates[..., H:]
 
     @staticmethod
-    def _out(p: dict, x: torch.Tensor, h: torch.Tensor,
+    def _out(p: dict, cfg: ModelConfig, x: torch.Tensor, h: torch.Tensor,
              z: torch.Tensor) -> torch.Tensor:
         """Head norm, ``ln_scale``, the SiLU gate and the down
-        projection: h (B, S, H, hd) f32 -> (B, S, d) in x's dtype."""
+        projection: h (B, S, H, hd) f32, z (B, S, di) or this rank's
+        block -> (B, S, d) in x's dtype."""
         B, S = h.shape[:2]
-        h = _head_norm(h).reshape(B, S, -1)
-        h = (h * p["ln_scale"]).to(x.dtype)
-        return dense(p["w_down"], h * F.silu(z))
+        di, _ = _proj_dims(cfg)
+        h = tp.rank_block(_head_norm(h).reshape(B, S, -1))
+        h = (h * tp.as_block(p["ln_scale"], (di,), 0)).to(x.dtype)
+        return tp.tp_dense(p["w_down"], h * F.silu(z),
+                           shape=(di, cfg.d_model),
+                           x_block=tp.tp_axis()[0] > 1)[0]
 
     @staticmethod
     def _chunk(carry, qb, kb, vb, ib, fb):
@@ -129,14 +176,14 @@ class MLSTM:
 
     @staticmethod
     def fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
-            chunk: int = 256) -> torch.Tensor:
-        """Chunkwise-parallel form over x (B, S, d).  The chunk halves
-        until it divides S, as the reference's does (to 1 for a prime S
-        above ``chunk``)."""
+            chunk: int = 256, *, x_block: bool = False) -> torch.Tensor:
+        """Chunkwise-parallel form over x (B, S, d) (this rank's feature
+        block where ``x_block``).  The chunk halves until it divides S,
+        as the reference's does (to 1 for a prime S above ``chunk``)."""
         B, S, _ = x.shape
         H = cfg.n_heads
-        di, hd = _proj_dims(cfg)
-        xu, z = dense(p["w_up"], x).split(di, dim=-1)
+        _, hd = _proj_dims(cfg)
+        xu, z = MLSTM._up(p, cfg, x, x_block)
         q, k, v, i_pre, f_pre = MLSTM._qkv_gates(p, cfg, xu)
         ck = min(chunk, S)
         while S % ck:
@@ -151,7 +198,7 @@ class MLSTM:
             carry, h = MLSTM._chunk(carry, q[:, sl], k[:, sl], v[:, sl],
                                     i_pre[:, sl], f_pre[:, sl])
             hs.append(h)
-        return MLSTM._out(p, x, torch.cat(hs, dim=1), z)
+        return MLSTM._out(p, cfg, x, torch.cat(hs, dim=1), z)
 
     # -- decode --------------------------------------------------------
     @staticmethod
@@ -170,11 +217,21 @@ class MLSTM:
 
     @staticmethod
     def decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-               pos: int) -> tuple[torch.Tensor, dict]:
-        """x: (B, 1, d), one token: one step of the recurrence."""
+               pos: int, *, x_block: bool = False,
+               cspec: dict | None = None) -> tuple[torch.Tensor, dict]:
+        """x: (B, 1, d), one token (this rank's feature block where
+        ``x_block``): one step of the recurrence.  Under tensor
+        parallelism ``cache`` holds this rank's blocks placed by
+        ``cspec`` (``cache_specs``' entries; None: whole): the state is
+        gathered whole for the step and its new value cut back into the
+        blocks."""
         del pos
-        di, _ = _proj_dims(cfg)
-        xu, z = dense(p["w_up"], x).split(di, dim=-1)
+        split = tp.tp_axis()[0] > 1
+        if split:
+            have = tp.cache_dims(cache, cspec)
+            want = dict.fromkeys(cache)
+            cache, blocks = tp.cache_as(cache, have, want), cache
+        xu, z = MLSTM._up(p, cfg, x, x_block)
         q, k, v, i_pre, f_pre = MLSTM._qkv_gates(p, cfg, xu)
         q, k, v = q[:, 0], k[:, 0], v[:, 0]                    # (B,H,hd)
         i_pre, f_pre = i_pre[:, 0], f_pre[:, 0]                # (B,H)
@@ -189,10 +246,13 @@ class MLSTM:
         num = torch.einsum("bhvk,bhk->bhv", C, qf)
         den = torch.maximum(torch.einsum("bhk,bhk->bh", n, qf).abs(),
                             torch.exp(-m_new))[..., None]
-        y = MLSTM._out(p, x, (num / den)[:, None], z)
+        y = MLSTM._out(p, cfg, x, (num / den)[:, None], z)
         cache["C"].copy_(C)
         cache["n"].copy_(n)
         cache["m"].copy_(m_new)
+        if split:
+            tp.cache_put(blocks, cache, have, want)
+            cache = blocks
         return y, cache
 
 
@@ -203,7 +263,7 @@ class SLSTM:
         d = cfg.d_model
         H = cfg.n_heads
         hd = d // H
-        ff = int(d * 4 / 3)
+        ff = _ff_dim(cfg)
         kw = {"dtype": dtype, "device": device}
         # 4 gates (i, f, z, o), input and block-diagonal recurrent weights.
         return {
@@ -216,6 +276,11 @@ class SLSTM:
                                  scale=1.0 / math.sqrt(d * 2 * cfg.n_layers),
                                  **kw),
         }
+
+    @staticmethod
+    def tp_width(cfg: ModelConfig) -> int:
+        """The width whose blocks a rank computes on: d_model."""
+        return cfg.d_model
 
     @staticmethod
     def _r_cat(p: dict) -> torch.Tensor:
@@ -252,37 +317,64 @@ class SLSTM:
         return (c, n, h, m), h
 
     @staticmethod
-    def _out(p: dict, x: torch.Tensor, h: torch.Tensor) -> torch.Tensor:
+    def _wx(p: dict, cfg: ModelConfig, x: torch.Tensor,
+            x_block: bool) -> torch.Tensor:
+        """The gates' input terms (B, S, 4d) in f32, whole."""
+        d = cfg.d_model
+        return tp.tp_dense(p["w_x"], x, shape=(d, 4 * d),
+                           x_block=x_block)[0].float()
+
+    @staticmethod
+    def _out(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             h: torch.Tensor) -> torch.Tensor:
         """``ln_scale``, then the post-up-projection FF (proj factor 4/3,
-        GeGLU): h (B, S, d) f32 -> (B, S, d) in x's dtype."""
-        h = (h * p["ln_scale"]).to(x.dtype)
-        u, g = dense(p["w_up"], h).chunk(2, dim=-1)
-        return dense(p["w_down"], u * act_fn("gelu")(g))
+        GeGLU): h (B, S, d) f32 -> (B, S, d) in x's dtype.  Under tensor
+        parallelism on this rank's block of h's features, and of the FF's
+        where ``model`` divides it."""
+        d, ff = cfg.d_model, _ff_dim(cfg)
+        split = tp.tp_axis()[0] > 1
+        h = tp.rank_block(h) * tp.as_block(p["ln_scale"], (d,), 0)
+        ug, blk = tp.tp_dense_groups(p["w_up"], h.to(x.dtype), (d, 2 * ff),
+                                     2, x_block=split)
+        u, g = ug.chunk(2, dim=-1)
+        return tp.tp_dense(p["w_down"], u * act_fn("gelu")(g),
+                           shape=(ff, d), x_block=blk)[0]
 
     @staticmethod
     def fwd(p: dict, cfg: ModelConfig, x: torch.Tensor,
-            chunk: int = 64) -> torch.Tensor:
-        """The recurrence over x (B, S, d), one step a position.
-        ``chunk`` is accepted for the reference's signature: its chunks
-        bound only what the reference's backward keeps, and the padded
-        steps of its last chunk come after every kept output."""
+            chunk: int = 64, *, x_block: bool = False) -> torch.Tensor:
+        """The recurrence over x (B, S, d) (this rank's feature block
+        where ``x_block``), one step a position.  ``chunk`` is accepted
+        for the reference's signature: its chunks bound only what the
+        reference's backward keeps, and the padded steps of its last
+        chunk come after every kept output.  On ``meta`` (the dry run,
+        shapes only) the steps' recurrent products are one batched
+        product over every step's input-only state, so that autograd
+        and the FLOP counter see the loop's work (2·S·B·d·4hd) without
+        its S host steps."""
         del chunk
-        B, S, d = x.shape
-        H = cfg.n_heads
+        B, S = x.shape[:2]
+        d, H = cfg.d_model, cfg.n_heads
         hd = d // H
         # Heads lead, so that a step's recurrent product and its input
         # term are one batched GEMM: wx (S, H, B, 4 hd), states (H, B, hd).
-        wx = dense(p["w_x"], x).float().reshape(B, S, 4, H, hd)
+        wx = SLSTM._wx(p, cfg, x, x_block).reshape(B, S, 4, H, hd)
         wx = wx.permute(1, 3, 0, 2, 4).reshape(S, H, B, 4 * hd)
         r = SLSTM._r_cat(p)
         c, n, h, m = (t.transpose(0, 1)
                       for t in SLSTM._zero_state(cfg, B, x.device))
-        hs = []
-        for t in range(S):
-            c, n, h, m = SLSTM._cell(torch.baddbmm(wx[t], h, r), c, n, m)
-            hs.append(h)
-        h = torch.stack(hs, dim=0).permute(2, 0, 1, 3).reshape(B, S, d)
-        return SLSTM._out(p, x, h)
+        if x.device.type == "meta":
+            h0 = SLSTM._cell(wx, c, n, m)[2]
+            h = SLSTM._cell(wx + h0 @ r, c, n, m)[2]
+        else:
+            hs = []
+            for t in range(S):
+                c, n, h, m = SLSTM._cell(torch.baddbmm(wx[t], h, r), c, n,
+                                         m)
+                hs.append(h)
+            h = torch.stack(hs, dim=0)
+        h = h.permute(2, 0, 1, 3).reshape(B, S, d)
+        return SLSTM._out(p, cfg, x, h)
 
     @staticmethod
     def _zero_state(cfg: ModelConfig, batch: int, device):
@@ -304,14 +396,26 @@ class SLSTM:
 
     @staticmethod
     def decode(p: dict, cfg: ModelConfig, x: torch.Tensor, cache: dict,
-               pos: int) -> tuple[torch.Tensor, dict]:
-        """x: (B, 1, d), one token: one step of the recurrence."""
+               pos: int, *, x_block: bool = False,
+               cspec: dict | None = None) -> tuple[torch.Tensor, dict]:
+        """x: (B, 1, d), one token (this rank's feature block where
+        ``x_block``): one step of the recurrence.  Under tensor
+        parallelism the state is gathered whole for the step, as
+        :meth:`MLSTM.decode`'s is."""
         del pos
+        split = tp.tp_axis()[0] > 1
+        if split:
+            have = tp.cache_dims(cache, cspec)
+            want = dict.fromkeys(cache)
+            cache, blocks = tp.cache_as(cache, have, want), cache
         B = x.shape[0]
-        wx = dense(p["w_x"], x).float()[:, 0]                  # (B,4d)
+        wx = SLSTM._wx(p, cfg, x, x_block)[:, 0]               # (B,4d)
         carry = tuple(cache[k] for k in "cnhm")
         new, h = SLSTM._step(p, cfg, carry, wx)
-        y = SLSTM._out(p, x, h.reshape(B, 1, -1))
+        y = SLSTM._out(p, cfg, x, h.reshape(B, 1, -1))
         for k, t in zip("cnhm", new):
             cache[k].copy_(t)
+        if split:
+            tp.cache_put(blocks, cache, have, want)
+            cache = blocks
         return y, cache

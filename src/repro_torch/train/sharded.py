@@ -20,9 +20,11 @@ over ``model``.  One step, on every rank:
    rank holds more than one layer gathered (two in the backward: the
    recompute's and the gradients').  The ``model`` blocks stay blocks:
    attention runs on this rank's heads, the MLP on its block of ``d_ff``,
-   MoE on its experts or its ``d_ff`` slices, the residual whole
-   (:mod:`repro_torch.dist.tp`); Mamba and xLSTM mixers, which have no
-   tensor-parallel form, are gathered whole;
+   MoE on its experts or its ``d_ff`` slices, Mamba on its ``d_inner``
+   channels, the xLSTM projections on their blocks, the residual whole
+   (:mod:`repro_torch.dist.tp`); sLSTM's recurrent ``r``, and a Mamba or
+   xLSTM mixer whose width ``model`` does not divide, are gathered whole
+   (:func:`repro_torch.models.transformer.whole_keys`);
 2. each gradient is already this rank's block: the all-gathers'
    adjoints reduce-scatter it over the data axes, and a ``model`` block
    is only this rank's.  What is left is an all-reduce over the axes the

@@ -363,7 +363,10 @@ def test_dryrun_expert_parallel_prefill():
     """jamba's 16 experts over 16 model ranks: the prefill takes the
     expert-parallel path, an all-to-all there and back in each of its 16
     MoE layers, the sequence split over ``model`` and all-gathered back;
-    its Mamba layers scan through the plain version on ``meta``."""
+    its 28 Mamba layers scan their d_inner channels through the plain
+    version on ``meta``, each re-cutting its ``w_in`` block to the same
+    channels of x and z by one all-to-all of the block (the input's
+    65,536 rows outweigh the weight's 4,096)."""
     r = PDR.dryrun_cell("jamba-v0.1-52b", "prefill_32k")
     cfg = get_config("jamba-v0.1-52b", "full")
     assert sum(cfg.is_moe_layer(i) for i in range(cfg.n_layers)) == 16
@@ -376,8 +379,11 @@ def test_dryrun_expert_parallel_prefill():
     # serve spec's "model" entry) to one expert a rank, one all-to-all of
     # a block each
     recut = 3 * cfg.n_experts * d * cfg.moe_d_ff * 2 // 16
+    n_mamba = sum(cfg.layer_kind(i) == "mamba" for i in range(cfg.n_layers))
+    w_in = d * 2 * cfg.mamba_d_inner * 2 // 16
+    assert n_mamba == 28
     assert r["collectives"]["all-to-all"] == 16 * (
-        2 * (16 * c_se * d * 2) + recut)
+        2 * (16 * c_se * d * 2) + recut) + n_mamba * w_in
     assert r["cost"]["flops"] > 0
 
 

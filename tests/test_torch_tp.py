@@ -16,6 +16,14 @@ CPU, where the kernels run their plain versions.
   1e-4 of the reference (``tests/test_torch_forward.py``'s bound).
 * ``as_block`` and ``reblock`` on ``meta`` over a 4-rank ``model`` axis
   (a mesh description): the blocks' shapes, and one all-to-all a re-cut.
+* The Mamba and xLSTM mixers on their blocks (jamba and xlstm smoke):
+  on one rank every mixer, ``tp_dense_groups`` and the hook's programs
+  are the plain ones, bit for bit (gradients too); on mesh descriptions
+  (``meta``; (1, 2) at smoke size, 16 x 16 at full width) the hook's
+  plan and the collectives' tally gather no Mamba weight over ``model``
+  and no xLSTM weight but sLSTM's ``r``, and a width that ``model`` does
+  not divide keeps the whole gather; the plain selective scans on
+  channel blocks give the whole scan's columns bit for bit.
 """
 
 import functools
@@ -36,12 +44,17 @@ from repro_torch.data import DataConfig, SyntheticLM
 from repro_torch.dist import tp
 from repro_torch.dist.sharding import (PartitionSpec as P, cache_specs,
                                        gather_block, gather_hook,
-                                       param_specs, spec_leaves)
+                                       local_shape, param_specs,
+                                       spec_leaves, under)
 from repro_torch.kernels import decode_attention_plain
 from repro_torch.kernels.decode_attention import merge_partials
+from repro_torch.kernels.mamba_scan import mamba_scan_plain
 from repro_torch.launch import make_host_mesh
+from repro_torch.launch.mesh import production_mesh_spec
 from repro_torch.models import transformer as T
 from repro_torch.models.common import dense, norm
+from repro_torch.models.ssm import Mamba, _scan_xla
+from repro_torch.models.xlstm import MLSTM, SLSTM
 from repro_torch.pytree import flatten, unflatten
 from repro_torch.train.sharded import sharded_grads
 from repro_torch.train.step import _to_device, accumulate_grads
@@ -158,7 +171,11 @@ def _ref_model(arch: str):
     return cfg_ref, cfg, params, port
 
 
-@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-v2-236b"])
+_MIXER_ARCHS = ["jamba-v0.1-52b", "xlstm-125m"]
+
+
+@pytest.mark.parametrize("arch", ["qwen1.5-0.5b", "deepseek-v2-236b",
+                                  *_MIXER_ARCHS])
 def test_hook_grads_match_whole_gather_one_rank(arch):
     """``sharded_grads`` (blocks, the per-layer gather hook inside each
     layer's checkpoint) against the program it replaced: every leaf
@@ -186,7 +203,19 @@ def test_hook_forward_and_decode_match_reference_one_rank():
     decode step through the hook on a world-1 mesh (blocks placed by
     ``param_specs``, the cache by ``cache_specs``) are the bare port's
     bits, and within 1e-4 of the reference's."""
-    cfg_ref, cfg, params, port = _ref_model("qwen1.5-0.5b")
+    _hook_forward_and_decode("qwen1.5-0.5b")
+
+
+@pytest.mark.parametrize("arch", _MIXER_ARCHS)
+def test_hook_forward_and_decode_match_reference_one_rank_mixers(arch):
+    """The same for jamba smoke (Mamba on its channel blocks, an
+    attention layer, MoE) and xlstm smoke (mLSTM and sLSTM on their
+    blocks)."""
+    _hook_forward_and_decode(arch)
+
+
+def _hook_forward_and_decode(arch: str) -> None:
+    cfg_ref, cfg, params, port = _ref_model(arch)
     mesh = make_host_mesh("cpu")
     hook = gather_hook(param_specs(port, mesh, mode="serve"))
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 9))
@@ -226,3 +255,209 @@ def test_blocks_recut_on_meta():
         assert tp.as_block(block, shape, 2).shape == (8, 128, 16)
     assert [c[:2] for c in calls] == [("all-to-all", "model")] * 2
     assert all(np.prod(c[2]) == 8 * 32 * 64 for c in calls)
+
+
+def _mixer_case(arch: str):
+    """A smoke config in f32, one layer of each mixer kind it has, and an
+    input: (cfg, {kind: (class, layer params)}, x)."""
+    cfg = get_config(arch, "smoke").replace(dtype="float32")
+    p = T.init(cfg, seed=0, device="cpu", param_dtype=torch.float32)
+    kinds = {}
+    for i, lp in enumerate(p["layers"]):
+        kind = cfg.layer_kind(i)
+        if kind != "attn" and kind not in kinds:
+            kinds[kind] = (T._mixer(cfg, i), lp["mixer"])
+    x = torch.randn((2, 7, cfg.d_model), generator=torch.Generator()
+                    .manual_seed(2))
+    return cfg, kinds, x
+
+
+@pytest.mark.parametrize("arch", _MIXER_ARCHS)
+def test_tp_mixers_on_one_rank_are_the_plain_layers(arch):
+    """On a world-1 mesh each Mamba, mLSTM and sLSTM mixer's ``fwd`` and
+    three ``decode`` steps (the cache placed by ``cache_specs``) give the
+    plain mixer's bits; ``tp_dense_groups`` is ``dense``; the hook keeps
+    no mixer whole but sLSTM's ``r``."""
+    cfg, kinds, x = _mixer_case(arch)
+    mesh = make_host_mesh("cpu")
+    for kind, (cls, mp) in kinds.items():
+        want = cls.fwd(mp, cfg, x)
+        c1 = cls.init_cache(cfg, 2, 8, torch.float32, device="cpu")
+        c2 = cls.init_cache(cfg, 2, 8, torch.float32, device="cpu")
+        want_dec = [cls.decode(mp, cfg, x[:, t:t + 1], c1, t)[0]
+                    for t in range(3)]
+        with C.act_ctx(dp="data", tp="model", mesh=mesh):
+            assert torch.equal(cls.fwd(mp, cfg, x), want), kind
+            cs = cache_specs({"l": c2}, mesh)["l"]
+            for t in range(3):
+                y, _ = cls.decode(mp, cfg, x[:, t:t + 1], c2, t, cspec=cs)
+                assert torch.equal(y, want_dec[t]), (kind, t)
+            w = mp["w_up" if kind != "mamba" else "w_in"]
+            shape = tuple(w["w"].shape)
+            y, blk = tp.tp_dense_groups(w, x, shape, 2)
+            assert torch.equal(y, dense(w, x)) and not blk
+        for k in c1:
+            assert torch.equal(c1[k], c2[k]), (kind, k)
+    with C.act_ctx(dp="data", tp="model", mesh=mesh):
+        assert {T.whole_keys(cfg, i) for i in range(cfg.n_layers)} <= {
+            (), (("mixer", "r"),)}
+
+
+def _model_gathers(cfg, mesh, mode: str):
+    """On the mesh description ``mesh`` (``meta``): the hook's plan for
+    every layer of ``cfg``'s blocks placed by ``param_specs(mode=)``, and
+    the collectives of a forward and (serve) a decode step on them: the
+    layer's leaves the plan gathers over ``model``, by key path, and the
+    calls."""
+    params = T.init(cfg, device="meta", param_dtype=torch.float32)
+    stree = param_specs(params, mesh, mode=mode)
+    specs = spec_leaves(params, stree)
+    blocks = unflatten(params, [
+        torch.empty(local_shape(t.shape, s, mesh), device="meta")
+        for (_, t), s in zip(flatten(params), specs)])
+    hook = gather_hook(stree)
+    calls = []
+    tok = torch.zeros((2, 8), dtype=torch.long, device="meta")
+    with C.act_ctx(dp="data", tp="model", mesh=mesh), \
+            C.count_collectives(calls), torch.no_grad():
+        T.forward(blocks, cfg, tok, remat=False, gather=hook)
+        if mode == "serve":
+            cache = T.init_cache(cfg, 2, 16, device="meta")
+            ctree = cache_specs(cache, mesh)
+            cb = unflatten(cache, [
+                torch.empty(local_shape(t.shape, s, mesh), dtype=t.dtype,
+                            device="meta")
+                for (_, t), s in zip(flatten(cache),
+                                     spec_leaves(cache, ctree))])
+            T.decode_step(blocks, cfg, tok[:, 0], cb, 0, gather=hook,
+                          cache_specs=ctree)
+        whole = {i: T.whole_keys(cfg, i) for i in range(cfg.n_layers)}
+    gathered = {}
+    for (path, w), todo in hook.plans.items():
+        if path[0] != "layers":
+            continue
+        leaves = flatten(blocks["layers"][path[1]])
+        for j, dims in todo:
+            if any("model" in C.as_axes(e) for _, e in dims):
+                gathered.setdefault(path[1], set()).add(leaves[j][0])
+    return params, specs, gathered, calls, whole
+
+
+@pytest.mark.parametrize("mode", ["serve", "train"])
+@pytest.mark.parametrize("arch,full", [(a, f) for a in _MIXER_ARCHS
+                                       for f in (False, True)])
+def test_hook_gathers_no_mixer_weight_over_model(arch, full, mode):
+    """jamba's and xlstm's rank programs on mesh descriptions (``meta``):
+    smoke on (1, 2), full width on the production 16 x 16.  The hook's
+    plan gathers no Mamba or mLSTM leaf over ``model``, of an sLSTM layer
+    only ``r`` (the recurrence needs every head's), and no all-gather
+    over ``model`` in a forward or a decode step gives any other weight's
+    shape."""
+    cfg = get_config(arch, "full" if full else "smoke")
+    if full:
+        cfg = cfg.replace(n_layers=8 if arch.startswith("jamba") else 2)
+        mesh = production_mesh_spec()
+    else:
+        mesh = C.MeshSpec(("data", "model"), (1, 2))
+    params, specs, gathered, calls, whole = _model_gathers(cfg, mesh, mode)
+    for i in range(cfg.n_layers):
+        kind = cfg.layer_kind(i)
+        got = gathered.get(i, set())
+        if kind == "slstm":
+            assert whole[i] == (("mixer", "r"),)
+            assert got == {("mixer", "r")}, (i, got)
+        elif kind != "attn":
+            assert whole[i] == () and not got, (i, kind, got)
+    exempt, weights = set(), set()
+    for (kp, t), s in zip(flatten(params), specs):
+        data = P(*(None if e == "model" else e for e in s))
+        shapes = {tuple(t.shape), local_shape(t.shape, data, mesh)}
+        (exempt if under(kp[2:], (("mixer", "r"),)) else weights).update(
+            shapes)
+    bad = [c for c in calls if c[:2] == ("all-gather", "model")
+           and c[2] in weights - exempt]
+    assert not bad, bad
+    if arch.startswith("xlstm"):
+        assert any(c[:2] == ("all-gather", "model") and c[2] in exempt
+                   for c in calls)
+
+
+@pytest.mark.parametrize("arch,m,widths", [
+    ("jamba-v0.1-52b", 2, {"d_model": 63, "mamba_expand": 1}),
+    ("xlstm-125m", 3, {"d_model": 32})])
+def test_mixer_width_model_does_not_divide_keeps_whole_gather(arch, m,
+                                                              widths):
+    """Mixers whose width ``model`` does not divide: jamba smoke at d 63
+    and d_inner 63 on a (1, 2) mesh description, xlstm smoke at d 32
+    (mLSTM's inner 64) on (1, 3).  Each is gathered whole (every leaf
+    the spec splits over ``model``: jamba's ``w_in``, ``w_x_dbc``,
+    ``conv_w``, ``a_log``; sLSTM's FF) and runs its one-device program;
+    the forward and a decode step run (``meta``)."""
+    cfg = get_config(arch, "smoke").replace(**widths)
+    mesh = C.MeshSpec(("data", "model"), (1, m))
+    params, specs, gathered, calls, whole = _model_gathers(cfg, mesh,
+                                                           "serve")
+    n_split = 0
+    for i, lp in enumerate(params["layers"]):
+        if cfg.layer_kind(i) == "attn":
+            continue
+        with C.act_ctx(dp="data", tp="model", mesh=mesh):
+            assert T.whole_mixer(cfg, i)
+        assert whole[i] == ("mixer",)
+        split = {kp for kp, t in flatten(lp) if kp[0] == "mixer"
+                 and any(n % m == 0 for n in t.shape)}
+        assert gathered.get(i, set()) >= split, (i, split)
+        n_split += len(split)
+    assert n_split
+
+
+@pytest.mark.parametrize("n", [2, 4])
+def test_scan_on_channel_blocks_is_the_whole_scan_bitwise(n):
+    """The selective scan is independent per channel: the kernel's plain
+    version run on each of ``n`` channel blocks gives the whole scan's
+    columns bit for bit.  The plain twin of the reference's scan sums
+    ``h·C`` in an einsum whose order follows the width: within 1e-6."""
+    gen = torch.Generator().manual_seed(4)
+    B, S, Dc, N = 2, 19, 64, 8
+    x, dt = (torch.randn((B, S, Dc), generator=gen) for _ in range(2))
+    dt = torch.nn.functional.softplus(dt)
+    bc = torch.randn((B, S, 2 * N), generator=gen)
+    bm, cm = bc[..., :N], bc[..., N:]
+    a = -torch.rand((Dc, N), generator=gen) - 0.1
+    d = torch.randn((Dc,), generator=gen)
+    whole = mamba_scan_plain(x, dt, bm, cm, a, d)
+    whole_xla = _scan_xla(x, dt, bm, cm, a)
+    c = Dc // n
+    for r in range(n):
+        sl = slice(r * c, (r + 1) * c)
+        blk = mamba_scan_plain(x[..., sl].contiguous(),
+                               dt[..., sl].contiguous(), bm, cm,
+                               a[sl].contiguous(), d[sl].contiguous())
+        assert torch.equal(blk, whole[..., sl]), r
+        torch.testing.assert_close(_scan_xla(x[..., sl], dt[..., sl], bm,
+                                             cm, a[sl]), whole_xla[..., sl],
+                                   rtol=1e-6, atol=1e-6)
+
+
+def test_meta_recurrences_keep_shapes_and_gradients():
+    """On ``meta`` the plain twin of the reference's scan and sLSTM's step
+    loop run no step loop: the outputs keep their shapes, and autograd
+    reaches every input with its shape (the dry run's train cells)."""
+    meta = {"device": "meta", "requires_grad": True}
+    xc, dt = (torch.empty((2, 4096, 256), **meta) for _ in range(2))
+    bm, cm = (torch.empty((2, 4096, 16), **meta) for _ in range(2))
+    a = torch.empty((256, 16), **meta)
+    y = _scan_xla(xc, dt, bm, cm, a)
+    assert y.shape == (2, 4096, 256) and y.dtype == torch.float32
+    grads = torch.autograd.grad(y.sum(), (xc, dt, bm, cm, a))
+    assert [g.shape for g in grads] == [t.shape for t in
+                                        (xc, dt, bm, cm, a)]
+    cfg = get_config("xlstm-125m", "smoke")
+    p = SLSTM.init(torch.Generator(), cfg, dtype=torch.float32,
+                   device="meta")
+    leaves = [t.requires_grad_() for _, t in flatten(p)]
+    x = torch.empty((2, 4096, cfg.d_model), **meta)
+    y = SLSTM.fwd(p, cfg, x)
+    assert y.shape == x.shape
+    grads = torch.autograd.grad(y.sum(), [x, *leaves])
+    assert [g.shape for g in grads] == [t.shape for t in [x, *leaves]]

@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
-"""qwen1.5-0.5b's full-width ``decode_step`` on the card, this tree's
-port against an earlier commit's, step by step in one process.
+"""A full-width ``decode_step`` on the card (qwen1.5-0.5b by default),
+this tree's port against an earlier commit's, step by step in one
+process.
 
     git archive <commit> | (mkdir -p build/parent && tar -x -C build/parent)
     python3 tools/step_turns.py --parent build/parent
+    python3 tools/step_turns.py --parent build/parent \
+        --arch jamba-v0.1-52b --layers 8
 
 The earlier tree's ``src/repro_torch`` is imported under another name
 (``repro_torch_parent``, through a symlink under ``<parent>/build``),
@@ -83,6 +86,9 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--parent", type=Path, required=True,
                     help="an unpacked tree of the earlier commit")
+    ap.add_argument("--arch", default="qwen1.5-0.5b")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("step_turns: no CUDA device", file=sys.stderr)
@@ -90,7 +96,8 @@ def main(argv=None) -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60).stdout.strip()
-    print(f"[turns] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}")
+    print(f"[turns] {torch.cuda.get_device_name(0)}; nvidia-smi: {smi}; "
+          f"{args.arch}, {args.layers or 'all'} layers")
     sides = {}
     for side, tree, name in (("earlier", args.parent.resolve(),
                               "repro_torch_parent"),
@@ -98,7 +105,9 @@ def main(argv=None) -> int:
         _port(tree, name)
         T = importlib.import_module(name + ".models.transformer")
         cfg = importlib.import_module(name + ".configs").get_config(
-            "qwen1.5-0.5b", "full")
+            args.arch, "full")
+        if args.layers:
+            cfg = cfg.replace(n_layers=args.layers)
         st = {"T": T, "cfg": cfg,
               "p": T.init(cfg, seed=0, device="cuda", draw_device="cuda"),
               "cache": T.init_cache(cfg, 1, 512, device="cuda"),

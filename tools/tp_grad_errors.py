@@ -6,7 +6,8 @@ f32's own rounding: each leaf's error over the leaf's norm.
 
 Two gloo ranks on the CPU (spawned processes, a ``file://`` store under
 a temporary directory) run ``train.sharded.sharded_grads`` on a (1, 2)
-``model`` mesh (qwen and deepseek smoke, tensor parallelism) and a
+``model`` mesh (qwen, deepseek, jamba and xlstm smoke, tensor
+parallelism) and a
 (2, 1) data mesh (qwen smoke, per-layer FSDP), the bf16 cast off, on
 the 4 x 40-token batch of ``tests/test_torch_dist_ranks.py``; rank 0
 also takes the one-device f32 gradient and the f64 one of the same
@@ -29,12 +30,15 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 CASES = {"qwen 1x2": ("qwen1.5-0.5b", (1, 2)),
          "deepseek 1x2": ("deepseek-v2-236b", (1, 2)),
+         "jamba 1x2": ("jamba-v0.1-52b", (1, 2)),
+         "xlstm 1x2": ("xlstm-125m", (1, 2)),
          "qwen 2x1": ("qwen1.5-0.5b", (2, 1))}
 
 
 def _cfg(arch: str, dtype: str):
     from repro_torch.configs import get_config
-    # capacity factor E / K for deepseek: no token drops on either path
+    # capacity factor E / K for deepseek (at least that for jamba): no
+    # token drops on either path
     return get_config(arch, "smoke").replace(dtype=dtype,
                                              capacity_factor=4.0)
 
@@ -50,7 +54,7 @@ def _rank(rank: int, store: str, out: str) -> None:
     from repro_torch.dist.sharding import (local_block, param_specs,
                                            placements, spec_leaves)
     from repro_torch.models import transformer as T
-    from repro_torch.pytree import flatten, tree_map, unflatten
+    from repro_torch.pytree import flatten, unflatten
     from repro_torch.train.sharded import (as_dtensors, sharded_grads,
                                            train_state_shardings)
     import repro_torch.train.step as PS
@@ -86,8 +90,11 @@ def _rank(rank: int, store: str, out: str) -> None:
         lines.append(f"{name}: sharded vs one device (f32) {err:.2e} "
                      f"({leaf})")
         if shape == (1, 2):
-            g64, _ = PS.accumulate_grads(tree_map(lambda t: t.double(), p0),
-                                         _cfg(arch, "float64"), batch)
+            # the same draws in f64 (the leaves kept f32 stay f32)
+            cfg64 = _cfg(arch, "float64")
+            g64, _ = PS.accumulate_grads(T.init(
+                cfg64, seed=0, device="cpu", param_dtype=torch.float64),
+                cfg64, batch)
             g64 = {"/".join(map(str, k)): v for k, v in flatten(g64)}
             err, leaf = _worst(g32, g64)
             lines.append(f"{arch} smoke: one device f32 vs f64 {err:.2e} "
