@@ -11,14 +11,19 @@ no phase catches its own failure:
 2. build    — the CUDA kernels from ``src/repro_torch/csrc`` (``nvcc``,
               ``sm_90a``), with the compiler's register/spill report, the
               flash kernels' kernel by kernel: the bf16 (wgmma) ones must
-              not spill;
+              not spill, nor any of the 16 RMSNorm kernels;
 3. kernels  — each kernel against its plain PyTorch version on the card,
               within f32 2e-5 / bf16 2e-2 (the reference's
               ``tests/test_kernels.py``): RMSNorm at the serving path's
               row and the forward's 32,768 rows, at xlstm-125m's width
-              768 over 1, 8 and 4,096 rows (bf16 and f32), and at
+              768 over 1, 8 and 4,096 rows (bf16 and f32), at
               deepseek-v2's widths 512, 1536 and 5120 over 4,096 rows
-              (twice, for the same bits), decode attention at the
+              (twice, for the same bits), and at every width the configs
+              normalise (512, 768, 1024, 1536, 4096, 5120, 6144) over 1,
+              8 and 4,096 rows, bf16 and f32, each twice for the same
+              bits, with its plan and the blocks an SM holds of it (from
+              a generator of their own: the later phases' inputs stay
+              as they were), decode attention at the
               serving path's shapes and a GQA shape, at qwen's heads on a
               32,768-slot cache at seven lengths around tile and cluster
               boundaries, at jamba's (B 8, T 4096, 32 heads over 8, D 128)
@@ -63,7 +68,8 @@ no phase catches its own failure:
               L 4096, its and SDPA's device µs per call from the profiler;
               RMSNorm's and ``F.rms_norm``'s device µs at 1 x 1024,
               32,768 x 1024, 32,768 x 4096 and 4,096 x 512, 1536 and
-              5120 rows, each beside its bytes bound, the calls rotating
+              5120 rows, each beside its bytes bound and its plan, the
+              calls rotating
               over inputs that span twice the L2 (one row stays
               L2-resident);
               flash attention at the three shapes above, at qwen's
@@ -205,8 +211,9 @@ no phase catches its own failure:
               pipeline's state and its losses are within 1e-2 of the
               straight run's (room for sums whose order may change from
               run to run); ``serve(..., ckpt_dir=...)`` from
-              the result, every request finished; xlstm-125m at full
-              width for 5 steps at B 8 x S 512, finite losses and
+              the result (``CKPT_SERVE``), every request finished;
+              xlstm-125m at full width for ``XLSTM_TRAIN_STEPS`` steps at
+              B 8 x S 512, finite losses and
               gradient norms, 25 RMSNorm launches a step;
 22. dist    — ``make_host_mesh()`` on the card (a world-1 NCCL group, a
               1 x 1 ("data", "model") DeviceMesh; §21's ``train()``
@@ -333,6 +340,11 @@ LIVE_MAX_STAGES = None
 #: the profiled bursty workload (device busy share): requests, prompt and
 #: new-token ranges
 LIVE_PROFILED = (2, (24, 64), (4, 8))
+#: §21: xlstm-125m's train steps (7-12 s each: the sLSTM recurrence's
+#: host loop); the first runs every path, the second the update's result
+XLSTM_TRAIN_STEPS = 2
+#: §21: requests served from the resumed run's checkpoint, new tokens each
+CKPT_SERVE = (2, 4)
 
 
 class SmokeFailure(RuntimeError):
@@ -436,25 +448,37 @@ def device_rows(prof) -> list[tuple[str, float, int]]:
     return rows
 
 
-def profiled(block, tries: int = 5, on_prof=None):
+def launches_in(rows, want: dict) -> bool:
+    """Whether device ``rows`` hold ``want``'s launches of each kernel
+    (name: count; the kernels' symbols hold their names)."""
+    return all(sum(r[2] for r in rows if name in r[0]) == n
+               for name, n in want.items())
+
+
+def profiled(block, tries: int = 5, on_prof=None, want: dict | None = None):
     """``block()`` under ``torch.profiler``: (the device rows, what
     ``block`` returned, the sessions made).  In this long-lived process a
-    session can record no device activity at all, seemingly at random;
-    such a session is printed and ``block`` runs again after a pause,
-    ``tries`` sessions at most.  ``on_prof`` gets the session that
-    recorded, for readings other than the device rows."""
+    session can record no device activity at all, or lose a launch,
+    seemingly at random; such a session (no rows, or fewer than
+    ``want``'s launches of a kernel where ``want`` is given, while the
+    wrappers' counters saw them all) is printed and ``block`` runs again
+    after a pause, ``tries`` sessions at most.  ``on_prof`` gets the
+    session that recorded, for readings other than the device rows."""
     for attempt in range(tries):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             out = block()
         rows = device_rows(prof)
-        if rows:
+        if rows and (want is None or launches_in(rows, want)):
             if on_prof is not None:
                 on_prof(prof)
             return rows, out, attempt + 1
-        print(f"[profile] session {attempt + 1} recorded no device "
-              "activity; again")
+        print(f"[profile] session {attempt + 1} recorded "
+              f"{'a launch short of ' + str(want) if rows else 'no device activity'}"
+              "; again")
         time.sleep(1.0)
+    if rows:
+        return rows, out, tries
     raise SmokeFailure(f"the profiler recorded no device activity in "
                        f"{tries} sessions")
 
@@ -540,15 +564,22 @@ def rel_err(got, want) -> np.ndarray:
 
 
 def check_scan(label: str, rows, table, es, n_ref: int, seed: int,
-               errs: list, work: dict | None = None
+               errs: list, work: dict | None = None,
+               plain_ms: list | None = None
                ) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
     """The kernel on ``rows`` against the plain version on every row and
     the float64 oracle on ``n_ref`` seeded rows (all rows where
     ``n_ref`` >= B), within ``F32_EVENT_RTOL``; returns the kernel's
     times, the oracle's and the oracle's row indices.  ``work`` gets the
-    plain version's counts."""
+    plain version's counts, ``plain_ms`` its call's ms (host clock,
+    synchronised)."""
     got = es.event_times(rows, table)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     plain = es.event_times_plain(rows, table, work=work)
+    torch.cuda.synchronize()
+    if plain_ms is not None:
+        plain_ms.append((time.perf_counter() - t0) * 1e3)
     B = rows.shape[0]
     pick = (np.arange(B) if n_ref >= B else
             np.sort(np.random.default_rng(seed).choice(B, n_ref,
@@ -1684,8 +1715,9 @@ def main(argv=None) -> int:
                                      flash_attention,
                                      flash_attention_plain, launch_counts,
                                      mamba_scan, mamba_scan_plain,
-                                     reset_launch_counts, rmsnorm_rows,
-                                     rmsnorm_rows_plain, scan_plan)
+                                     reset_launch_counts, rmsnorm_plan,
+                                     rmsnorm_rows, rmsnorm_rows_plain,
+                                     scan_plan)
     from repro_torch.data import DataConfig, SyntheticLM
     from repro_torch.launch.serve import serve
     from repro_torch.launch.train import train
@@ -1704,6 +1736,8 @@ def main(argv=None) -> int:
     import torch.nn.functional as F
 
     report: dict = {}
+    clock: dict = {}     # the script's seconds at each phase's end
+    report["clock_s"] = clock
     dev = torch.device("cuda")
     spec_32k = SHAPES["prefill_32k"]
 
@@ -1715,6 +1749,7 @@ def main(argv=None) -> int:
     print(f"[device] nvidia-smi: {smi}")
     report["device"] = {"name": name, "count": count, "nvidia_smi": smi}
 
+    clock[1] = round(time.perf_counter() - T_START, 1)
     # 2. build ----------------------------------------------------------
     t0 = time.perf_counter()
     build.library()
@@ -1746,13 +1781,33 @@ def main(argv=None) -> int:
         serial = text.count("wgmma.mma_async instructions are serialized")
         print(f"[build]   flash: {serial} ptxas note(s) of serialised wgmma")
         report["flash_ptxas"] = [list(k) for k in flash_ptxas]
+        # the RMSNorm kernels (one a dtype and vectors a lane) hold two
+        # rows and their scale in registers: none may spill
+        text = log.read_text()
+        text = text[text.index("== rmsnorm.cu"):]
+        text = text[:text.find("\n== ", 1) % (len(text) + 1)]
+        rms_ptxas = re.findall(
+            r"Compiling entry function '\w*?(rmsnorm_kernelI\w+?E)\w*'.*?"
+            r"\n\s*(\d+ bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads)\s*\nptxas info\s*: (Used [^\n]*)",
+            text, re.S)
+        require(len(rms_ptxas) == 16,
+                f"build.log: {len(rms_ptxas)} RMSNorm kernels, want 16")
+        for kname, frame, st, ld, used in rms_ptxas:
+            require(st == ld == "0", f"build.log: {kname} spills ({frame})")
+        regs = sorted({int(re.search(r"(\d+) registers", k[4]).group(1))
+                       for k in rms_ptxas})
+        print(f"[build]   rmsnorm: 16 kernels, none spills; registers {regs}")
+        report["rmsnorm_ptxas"] = [list(k) for k in rms_ptxas]
     report["build_s"] = build_s
 
+    clock[2] = round(time.perf_counter() - T_START, 1)
     # 3. kernels vs plain on the card ------------------------------------
     gen = torch.Generator().manual_seed(0)
 
-    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0):
-        x = torch.randn(shape, generator=gen) * scale + shift
+    def randn(*shape, dtype=torch.float32, scale=1.0, shift=0.0,
+              generator=None):
+        x = torch.randn(shape, generator=generator or gen) * scale + shift
         return x.to(dev, dtype)
 
     errs = {"rmsnorm": [], "decode_attention": [], "flash_attention": [],
@@ -1764,8 +1819,9 @@ def main(argv=None) -> int:
             s = randn(1024, scale=0.1, shift=1.0)
             compare(f"rmsnorm ({rows}, 1024) {dt}", rmsnorm_rows(x, s),
                     rmsnorm_rows_plain(x, s), dt, errs["rmsnorm"])
-    # xlstm-125m's width (§20, §21): 768 = 3 warps a block in bf16, at a
-    # decode step's 1 and 8 rows and a prefill's or train step's 4,096
+    # xlstm-125m's width (§20, §21): 768 = one warp of 3 vectors a lane in
+    # bf16, at a decode step's 1 and 8 rows and a prefill's or train
+    # step's 4,096
     for rows in (1, 8, 4096):
         for dt in (torch.bfloat16, torch.float32):
             x = randn(rows, 768, dtype=dt)
@@ -1782,6 +1838,40 @@ def main(argv=None) -> int:
                 torch.bfloat16, errs["rmsnorm"])
         require(torch.equal(y, rmsnorm_rows(x, s)),
                 f"rmsnorm (4096, {d}): two calls gave different bits")
+    # RMSNorm at every width the configs normalise (deepseek-v2's kv_norm
+    # 512 and q_norm 1536, xlstm-125m's 768, qwen's 1024, jamba's and
+    # mixtral's 4096, deepseek-v2's, mistral-nemo's and pixtral's 5120,
+    # internlm2's 6144) at a decode step's 1 and 8 rows and a prefill's
+    # 4,096, bf16 and f32, every call twice for the same bits; each
+    # launch's plan, and the blocks an SM holds of it.  Their inputs come
+    # from a generator of their own, so that every later phase draws what
+    # it drew before these checks were added
+    print("[kernels] RMSNorm at every config width (plan: lanes a row, "
+          "vectors a lane, rows a block, grid; blocks an SM)")
+    rms_gen = torch.Generator().manual_seed(26)
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    rms_plans = {}
+    for d in (512, 768, 1024, 1536, 4096, 5120, 6144):
+        for rows in (1, 8, 4096):
+            for dt in (torch.bfloat16, torch.float32):
+                x = randn(rows, d, dtype=dt, generator=rms_gen)
+                s = randn(d, scale=0.1, shift=1.0, generator=rms_gen)
+                plan = rmsnorm_plan(rows, d, dt, sms)
+                occ = build.library().repro_rmsnorm_blocks_per_sm(
+                    1 if dt == torch.bfloat16 else 0, plan.vecs, plan.lanes,
+                    plan.rows_per_block)
+                rms_plans[f"{rows}x{d} {dt}"] = {**plan._asdict(),
+                                                 "blocks_per_sm": occ}
+                y = rmsnorm_rows(x, s)
+                compare(f"rmsnorm ({rows}, {d}) {dt} plan {tuple(plan)}, "
+                        f"{occ} blocks an SM", y, rmsnorm_rows_plain(x, s),
+                        dt, errs["rmsnorm"])
+                require(torch.equal(y, rmsnorm_rows(x, s)),
+                        f"rmsnorm ({rows}, {d}) {dt}: two calls gave "
+                        "different bits")
+                require(occ >= 1, f"rmsnorm ({rows}, {d}) {dt}: the "
+                        f"occupancy query gave {occ}")
+    report["rmsnorm_plans"] = rms_plans
     del x, y
     print("[kernels] decode attention vs plain")
     cases = [((1, 16, 16, 512, 64), [1, 100, 128, 511, 512]),
@@ -1909,7 +1999,7 @@ def main(argv=None) -> int:
     tables = {name: scan_table(name) for name in
               ("gpu8", "gpu16", "gpu24", "gpu64", "oversized", "gpu12_u5",
                "gpu16_u40", "serving")}
-    scan_rows, scan_work, event_plans = {}, {}, set()
+    scan_rows, scan_work, scan_plain_ms, event_plans = {}, {}, {}, set()
     for i, (key, table) in enumerate(tables.items()):
         scan_rows[key] = torch.from_numpy(
             random_rows(len(table.kernels), 4096, 40 + i)).to(dev)
@@ -1919,7 +2009,8 @@ def main(argv=None) -> int:
             f"event scan {key} ({table.device.name}, U {table.device.n_units}"
             f"; plan {plan.name}, {32 // plan.width} row(s) a warp)",
             scan_rows[key], table, event_scan, 256, 50 + i,
-            errs["event_scan"], work=scan_work.setdefault(key, {}))
+            errs["event_scan"], work=scan_work.setdefault(key, {}),
+            plain_ms=scan_plain_ms.setdefault(key, []))
         require(np.array_equal(
             got, event_scan.event_times(scan_rows[key], table).cpu().numpy()),
             f"event scan {key}: two calls on the same rows differ")
@@ -1930,7 +2021,6 @@ def main(argv=None) -> int:
     # every call twice, for the same bits; jamba's shapes (B 1 takes the
     # plan of 4 states a thread, B 8 that of 8) also with B and C as the
     # slices of one (B, T, 288) projection that Mamba.fwd passes
-    sms = torch.cuda.get_device_properties(0).multi_processor_count
 
     def mamba_plan_name(ins) -> str:
         p = scan_plan(*ins[0].shape, ins[2].shape[-1], ins[0].dtype, sms)
@@ -2057,6 +2147,7 @@ def main(argv=None) -> int:
                                    "without its graph")
     torch.cuda.synchronize()
 
+    clock[3] = round(time.perf_counter() - T_START, 1)
     # 4. times at the paths' shapes -----------------------------------------
     print("[times] CUDA events: median of 5 repeats of n back-to-back calls "
           "after warm-up calls (n = 200 and 20 warm-up calls unless shown)")
@@ -2119,6 +2210,7 @@ def main(argv=None) -> int:
         rb, rby = bound(rows * d * 2 * 2 + d * 4, 4 * rows * d,
                         torch.bfloat16)
         rms_dev[f"{rows}x{d}"] = {
+            "plan": tuple(rmsnorm_plan(rows, d, torch.bfloat16, sms)),
             "kernel_device_us": graph_us(lambda xr: rmsnorm_rows(xr, sr),
                                          rotate=[(xr,) for xr in xs]),
             "library_device_us": graph_us(
@@ -2226,8 +2318,10 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     kern["flash_attention"] = flash_t["qwen"]
     # the event scan at refine_batch x 32 orders of n 64 and at the
-    # design space of EpBsEsSw-8; plain n = 1 (its first call ran in §3
-    # or warms up here), the host BatchedEventSim timed once
+    # design space of EpBsEsSw-8; plain n = 1: n 64's is §3's call on the
+    # same rows (with its work counts; ~30 s a call), EpBsEsSw-8's timed
+    # here (its work count just ran it); the host BatchedEventSim timed
+    # once
     ep8 = core.ProfileTable.build(core.experiment("EpBsEsSw-8"), core.GTX580)
     space8 = np.asarray(list(itertools.permutations(range(8))), np.int32)
     scan_t = {}
@@ -2249,12 +2343,17 @@ def main(argv=None) -> int:
                    lambda: event_scan.event_times(rows, table), n=20, warm=3)
         steps = work["head_steps"] + work["completions"] + work["solo"]
         plan = event_plan_of(event_scan, table, n)
+        if key.startswith("n64"):
+            plain_ms = scan_plain_ms["gpu64"][0]
+            repeats[f"event_scan.{key}.plain"] = [plain_ms]
+        else:
+            plain_ms = timed(f"event_scan.{key}.plain",
+                             lambda: event_scan.event_times_plain(rows,
+                                                                  table),
+                             n=1, warm=0, repeats=1)
         scan_t[key] = {
             "ms": ms,
-            "plain_ms": timed(f"event_scan.{key}.plain",
-                              lambda: event_scan.event_times_plain(rows,
-                                                                   table),
-                              n=1, warm=0, repeats=1),
+            "plain_ms": plain_ms,
             "library_ms": None,
             "host_batched_event_sim_ms": host_ms,
             "orders_per_s": B / ms * 1e3,
@@ -2325,8 +2424,8 @@ def main(argv=None) -> int:
               f"{warm}): kernel {t['kernel_device_us']:.2f} us per launch, "
               f"F.rms_norm {t['library_device_us']:.2f} us per call, bound "
               f"{t['bound_us']:.3f} us ({t['bound_by']}; the kernel at "
-              f"{t['bound_us'] / t['kernel_device_us']:.1%} of it) "
-              f"[{t['shape']}]")
+              f"{t['bound_us'] / t['kernel_device_us']:.1%} of it; plan "
+              f"{t['plan']}) [{t['shape']}]")
     for key, t in att.items():
         print(f"[times] decode_attention {key} device (CUDA graph of 50 "
               f"calls): kernel {t['device_us']:.2f} us per launch, SDPA "
@@ -2359,6 +2458,7 @@ def main(argv=None) -> int:
               f"{t['bound_ms']:.4g} ms ({t['bound_by']}; {terms}; exps at "
               f"16 per SM per clock, 1.98 GHz) [{t['shape']}]")
 
+    clock[4] = round(time.perf_counter() - T_START, 1)
     # 5. serving at full width -------------------------------------------
     print("[serve] qwen1.5-0.5b full, 8 requests, max_len 512, 32 new "
           "tokens each, policy symbiotic, bf16, seed 0")
@@ -2430,6 +2530,7 @@ def main(argv=None) -> int:
     print(f"[serve] full-width replay of request 0: logits (1, "
           f"{cfg_full.vocab}) finite, first token {first} as served")
 
+    clock[5] = round(time.perf_counter() - T_START, 1)
     # 6. profile of full-width decode steps ------------------------------
     n_prof = 16
     with torch.inference_mode():   # the same steps, unprofiled
@@ -2492,6 +2593,7 @@ def main(argv=None) -> int:
     report["profile"] = prof_rep
     del cache
 
+    clock[6] = round(time.perf_counter() - T_START, 1)
     # 7. prefill at full width ---------------------------------------------
     print(f"[prefill] qwen1.5-0.5b full, bf16, seed 0: prefill_logits at "
           f"B 8 x S 4096 and B 1 x S {spec_32k.seq_len} ({spec_32k.name}'s "
@@ -2516,7 +2618,8 @@ def main(argv=None) -> int:
                 T.prefill_logits(params, cfg_full, toks)
                 torch.cuda.synchronize()
                 return time.perf_counter() - t0
-            rows, wall_prof, sessions = profiled(call)
+            rows, wall_prof, sessions = profiled(
+                call, want={"flash_attention": 24})
         n_calls += 4 + sessions
         counts = launch_counts()
         require(counts == {"rmsnorm": 49 * n_calls, "decode_attention": 0,
@@ -2562,6 +2665,7 @@ def main(argv=None) -> int:
     report["prefill"] = prefill_rep
     del params
 
+    clock[7] = round(time.perf_counter() - T_START, 1)
     # 8. forward checks ---------------------------------------------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2632,6 +2736,7 @@ def main(argv=None) -> int:
     report["forward"] = fwd_rep
     del params_h, frames, logits
 
+    clock[8] = round(time.perf_counter() - T_START, 1)
     # 9. card vs CPU, smoke configs in f32 --------------------------------
     # the flat engine on four archs; the dependency-aware one
     # (respect_deps) on the three traced archs, whose tokens must be the
@@ -2802,6 +2907,7 @@ def main(argv=None) -> int:
             "max_rel_diff": rel}
         del params, opt_state
 
+    clock[9] = round(time.perf_counter() - T_START, 1)
     # 10. the design space of the six experiments ------------------------
     print("[design_space] the paper's Fig. 1 / Table 3 protocol on the "
           "GTX580 model: every launch order, Algorithm 1's and the refined "
@@ -2820,6 +2926,7 @@ def main(argv=None) -> int:
             "the design space did not run one event scan per experiment")
     report["design_space"] = space_rep
 
+    clock[10] = round(time.perf_counter() - T_START, 1)
     # 11. refined serving at full width ----------------------------------
     refined_rep = {}
     for kw in ({}, {"refine_model": "event", "refine_backend": "batched"}):
@@ -2908,7 +3015,10 @@ def main(argv=None) -> int:
                 T.prefill_logits(params, cfg, toks)
                 torch.cuda.synchronize()
                 return time.perf_counter() - t0
-            rows, wall_prof, sessions = profiled(call, on_prof=on_prof)
+            rows, wall_prof, sessions = profiled(
+                call, on_prof=on_prof,
+                want={k: n for k, n in want.items()
+                      if k in ("flash_attention", "mamba_scan")})
         n_calls = 4 + sessions
         counts = launch_counts()
         full = {k: want.get(k, 0) * n_calls for k in counts}
@@ -3042,6 +3152,7 @@ def main(argv=None) -> int:
         return sum(e.device_time_total for e in prof.key_averages()
                    if e.key == key)
 
+    clock[11] = round(time.perf_counter() - T_START, 1)
     # 12. jamba at full width, one period of depth ------------------------
     cfg_j = get_config("jamba-v0.1-52b", "full").replace(n_layers=8)
     print("[jamba] jamba-v0.1-52b full width, depth cut from 32 to 8 layers "
@@ -3078,12 +3189,14 @@ def main(argv=None) -> int:
             jamba_counts[k] = jamba_counts.get(k, 0) + v
     print(f"[jamba] launches over both shapes: {jamba_counts}")
 
+    clock[12] = round(time.perf_counter() - T_START, 1)
     # 13. jamba served ----------------------------------------------------
     print("[serve-jamba] the same model through ServingEngine: §5's 8 "
           "requests, max_len 512, 32 new tokens each, policy symbiotic")
     jamba_rep["serving"], _ = serve_runs(
         "serve-jamba", params, cfg_j, {"rmsnorm": 17, "decode_attention": 1})
 
+    clock[13] = round(time.perf_counter() - T_START, 1)
     # 14. jamba in f32: the kernels against the plain twins ---------------
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3115,6 +3228,7 @@ def main(argv=None) -> int:
     del params, a, b, toks
     torch.cuda.empty_cache()
 
+    clock[14] = round(time.perf_counter() - T_START, 1)
     # 15. deepseek-v2 at full width, depth cut to 8 layers ----------------
     cfg_d = get_config("deepseek-v2-236b", "full").replace(n_layers=8)
     print("[deepseek] deepseek-v2-236b full width, depth cut from 60 to 8 "
@@ -3140,6 +3254,7 @@ def main(argv=None) -> int:
               f"({'blockwise_sdpa' if S > 2048 else 'sdpa'} branch)")
         ds_rep[f"B{B}xS{S}"] = rep
 
+    clock[15] = round(time.perf_counter() - T_START, 1)
     # 16. deepseek served -------------------------------------------------
     print("[serve-deepseek] the same model through ServingEngine: §5's 8 "
           "requests, max_len 512, 32 new tokens each, policy symbiotic")
@@ -3149,6 +3264,7 @@ def main(argv=None) -> int:
     del params
     report["deepseek"] = ds_rep
 
+    clock[16] = round(time.perf_counter() - T_START, 1)
     # 17. deepseek in f32: forward (non-absorbed) against absorbed decode --
     cfg_d32 = cfg_d.replace(n_layers=2, dtype="float32")
     print("[deepseek] f32, TF32 off, depth 2 (one dense layer, one MoE "
@@ -3205,6 +3321,7 @@ def main(argv=None) -> int:
                      "same_argmax": same}
     del params, cache, full, last
 
+    clock[17] = round(time.perf_counter() - T_START, 1)
     # 18. mixtral at full width, depth cut to 16 layers --------------------
     cfg_m = get_config("mixtral-8x7b", "full").replace(n_layers=16)
     print("[mixtral] mixtral-8x7b full width, depth cut from 32 to 16 "
@@ -3241,6 +3358,7 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
+    clock[18] = round(time.perf_counter() - T_START, 1)
     # 19. the sliced, incremental front end at full width ------------------
     # Two seeded workloads (Poisson, bursty) of LIVE_REQUESTS requests each
     # through ServingFrontend over 2 replicas: respect_deps over every
@@ -3504,6 +3622,7 @@ def main(argv=None) -> int:
     del params
     torch.cuda.empty_cache()
 
+    clock[19] = round(time.perf_counter() - T_START, 1)
     # 20. xlstm-125m at full width ------------------------------------------
     # 12 layers, d 768, bf16, seeded weights drawn on the card, nothing cut:
     # §5's requests through ServingEngine (13 RMSNorm launches a decode
@@ -3582,13 +3701,15 @@ def main(argv=None) -> int:
     report["xlstm"] = xl_rep
     torch.cuda.empty_cache()
 
+    clock[20] = round(time.perf_counter() - T_START, 1)
     # 21. training at full width ---------------------------------------------
     # repro_torch.launch.train.train on qwen1.5-0.5b (f32 master weights,
     # bf16 compute, SyntheticLM, global batch 8 x seq 1024): a timed run of
     # the train step, 20 steps straight with checkpoints every 10, the
     # same 20-step run preempted after its step-10 checkpoint and resumed
     # by a second call on the same directory, and serve() from the result;
-    # then xlstm-125m at full width for 5 steps at B 8 x S 512
+    # then xlstm-125m at full width for XLSTM_TRAIN_STEPS steps at B 8 x
+    # S 512
     t21 = time.perf_counter()
     # §22's dry run (host work on meta tensors, no card) runs in a child
     # process beside §21; §22 waits for it and reads its records
@@ -3733,14 +3854,16 @@ def main(argv=None) -> int:
         require(extra == {"step": 10, "data": {"step": 10}}
                 and len(rl) == 10 and rdiff < 1e-2,
                 "the resumed run does not continue the straight one")
-        st = serve("qwen1.5-0.5b", variant="full", n_requests=4,
-                   max_new_tokens=8, ckpt_dir=str(resume_dir))
+        n_req, n_new = CKPT_SERVE
+        st = serve("qwen1.5-0.5b", variant="full", n_requests=n_req,
+                   max_new_tokens=n_new, ckpt_dir=str(resume_dir))
         outs = st["outputs"]
-        require(len(outs) == 4 and all(len(t) == 8 for t in outs.values()),
+        require(len(outs) == n_req
+                and all(len(t) == n_new for t in outs.values()),
                 f"serve from the checkpoint: not every request finished: "
                 f"{outs}")
-        print(f"[train] serve(ckpt_dir=...) from the step-20 checkpoint: 4 "
-              f"requests finished, {st['total_new_tokens']} tokens in "
+        print(f"[train] serve(ckpt_dir=...) from the step-20 checkpoint: "
+              f"{n_req} requests finished, {st['total_new_tokens']} tokens in "
               f"{st['wall_s']:.2f} s; req 0: {outs[0]}")
         tr_rep.update(straight_losses=losses, straight_s=straight["seconds"],
                       train_launches=train_counts, resumed_losses=rl,
@@ -3758,7 +3881,7 @@ def main(argv=None) -> int:
                                     global_batch=8))
     x_losses, x_gnorms, x_s = [], [], []
     reset_launch_counts()
-    for _ in range(5):
+    for _ in range(XLSTM_TRAIN_STEPS):
         t0 = time.perf_counter()
         params, opt_state, m = step_x(params, opt_state, data_x.next_batch())
         x_losses.append(float(m["loss"]))
@@ -3767,10 +3890,11 @@ def main(argv=None) -> int:
     counts = launch_counts()
     require(all(np.isfinite(x_losses)) and all(np.isfinite(x_gnorms)),
             f"xlstm train: losses {x_losses}, gradient norms {x_gnorms}")
-    require(counts == {k: 5 * (13 + 12) if k == "rmsnorm" else 0
-                       for k in counts},
+    require(counts == {k: XLSTM_TRAIN_STEPS * (13 + 12) if k == "rmsnorm"
+                       else 0 for k in counts},
             f"xlstm train: launches {counts}; want 25 RMSNorm a step")
-    print(f"[train] xlstm-125m full, B 8 x S 512, 5 steps: losses "
+    print(f"[train] xlstm-125m full, B 8 x S 512, {XLSTM_TRAIN_STEPS} "
+          f"steps: losses "
           f"{[round(v, 4) for v in x_losses]}, gradient norms (before "
           f"clipping) {[round(v, 3) for v in x_gnorms]}, all finite; s per "
           f"step {[round(v, 2) for v in x_s]}; launches {counts}")
@@ -3783,13 +3907,16 @@ def main(argv=None) -> int:
     print(f"[train] §20 took {xl_rep['phase_s']:.1f} s, §21 "
           f"{tr_rep['phase_s']:.1f} s")
 
+    clock[21] = round(time.perf_counter() - T_START, 1)
     # 22. dist --------------------------------------------------------------
     sharded_counts = dist_phase(report, dev, ck_root / "resume", 20,
                                 dry_proc, dry_out)
 
+    clock[22] = round(time.perf_counter() - T_START, 1)
     # 23. tp --------------------------------------------------------------
     tp_counts = tp_phase(report, dev)
 
+    clock[23] = round(time.perf_counter() - T_START, 1)
     # record ----------------------------------------------------------------
     # launches on the main paths: qwen, deepseek and mixtral decode steps
     # (§5, §16, §18), qwen and mixtral prefills (§7, §18), the sliced,
@@ -3836,6 +3963,7 @@ def main(argv=None) -> int:
     # the event scan's error is relative (makespans span decades)
     line["kernels"][3]["error"] = "relative"
     report["kernels"] = line["kernels"]
+    print(f"[clock] the script's seconds at the end of each phase: {clock}")
     if args.report is not None:
         args.report.parent.mkdir(parents=True, exist_ok=True)
         args.report.write_text(json.dumps(report, indent=1))

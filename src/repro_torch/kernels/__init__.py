@@ -8,14 +8,15 @@ from .event_scan import event_times, event_times_plain, event_times_reference
 from .flash_attention import (flash_attention, flash_attention_plain,
                               flash_plan)
 from .mamba_scan import mamba_scan, mamba_scan_plain, scan_plan
-from .rmsnorm import rmsnorm_rows, rmsnorm_rows_plain
+from .rmsnorm import rmsnorm_plan, rmsnorm_rows, rmsnorm_rows_plain
 
 __all__ = ["decode_attention", "decode_attention_plain", "decode_plan",
            "event_times",
            "event_times_plain", "event_times_reference", "flash_attention",
            "flash_attention_plain", "flash_plan", "mamba_scan",
            "mamba_scan_plain", "scan_plan",
-           "rmsnorm_rows", "rmsnorm_rows_plain", "launch_counts",
+           "rmsnorm_plan", "rmsnorm_rows", "rmsnorm_rows_plain",
+           "launch_counts",
            "reset_launch_counts"]
 
 _WRAPPERS = {"rmsnorm": rmsnorm_rows, "decode_attention": decode_attention,

@@ -106,8 +106,11 @@ def library() -> ctypes.CDLL:
     lib = ctypes.CDLL(str(out / _LIB))
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     ll = ctypes.c_longlong
-    lib.repro_rmsnorm.argtypes = [p, p, p, i, i, f, i, p]
+    lib.repro_rmsnorm.argtypes = [p, p, p, p, p]   # x, scale, y, launch; stream
     lib.repro_rmsnorm.restype = i
+    lib.repro_rmsnorm_blocks_per_sm.argtypes = [
+        i, i, i, i]                 # dtype, vecs, lanes, rows a block
+    lib.repro_rmsnorm_blocks_per_sm.restype = i
     lib.repro_decode_attention.argtypes = [
         p, p, p, p, p, p,           # q, k, v, lengths, out, lse (or null)
         i, i, i, i, i,              # B, H, Hkv, T, D

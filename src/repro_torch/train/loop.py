@@ -66,15 +66,19 @@ class TrainLoop:
 
     nan_skips: int = 0
 
-    def resume_or_init(self, params, opt_state):
-        """Returns (params, opt_state, start_step)."""
+    def resume_or_init(self, params, opt_state, shardings=None):
+        """Returns (params, opt_state, start_step).  ``shardings``, where
+        given, stands in for the ``shardings`` field for this call: the
+        restore lands on it and is cut to this rank's blocks."""
         step = latest_step(self.cfg.ckpt_dir)
         if step is None:
             return params, opt_state, 0
+        if shardings is None:
+            shardings = self.shardings
         tree = {"params": params, "opt": opt_state}
         tree, extra = restore_checkpoint(self.cfg.ckpt_dir, tree,
-                                         shardings=self.shardings)
-        if self.shardings is not None:
+                                         shardings=shardings)
+        if shardings is not None:
             tree = local_blocks(tree)
         self.data.load_state_dict(extra.get("data", {"step": 0}))
         return tree["params"], tree["opt"], int(extra.get("step", step))

@@ -28,8 +28,9 @@ from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  flash_attention_plain, flash_plan,
                                  launch_counts,
                                  mamba_scan, mamba_scan_plain, ops,
-                                 reset_launch_counts, rmsnorm_rows,
-                                 rmsnorm_rows_plain, scan_plan)
+                                 reset_launch_counts, rmsnorm_plan,
+                                 rmsnorm_rows, rmsnorm_rows_plain, scan_plan)
+from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels.mamba_scan import _plan as _scan_plan_of
 
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
@@ -99,6 +100,100 @@ def test_rmsnorm_plain_matches_reference(ref, R, D, dtype):
     assert out.dtype == tx.dtype and out.shape == tx.shape
     _close(out, ref.ops.rmsnorm(jx, js, interpret=True), dtype)
     _close(out, ref.ref.rmsnorm_ref(jx, js), dtype)
+
+
+#: the widths the ten configs normalise with RMSNorm: deepseek-v2's
+#: kv_norm 512 and q_norm 1536, xlstm-125m's 768, qwen's 1024, jamba's and
+#: mixtral's 4096, deepseek-v2's, mistral-nemo's and pixtral's 5120,
+#: internlm2's 6144
+_RMS_WIDTHS = [512, 768, 1024, 1536, 4096, 5120, 6144]
+_H100_SMS = 132
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("rows", [1, 8, 4096, 32768])
+@pytest.mark.parametrize("D", _RMS_WIDTHS)
+def test_rmsnorm_plan_covers_every_row_once(D, rows, dtype):
+    """The plan's launch, walked as the kernel walks it: every row taken
+    by exactly one group of lanes (one warp, or whole warps that are the
+    block) of one block; the group's lanes hold every 16-byte vector of
+    the row once, 4 at most, within the register budget; one warp a row
+    at bf16's 512 and 768, two warps at 1024 and 1536; one block for each
+    block's rows."""
+    dt = getattr(torch, dtype)
+    plan = rmsnorm_plan(rows, D, dt, _H100_SMS)
+    assert plan == rmsnorm_plan(rows, D, dt, _H100_SMS)
+    nv = D // (8 if dt == torch.bfloat16 else 4)
+    G, L = plan.rows_per_block, plan.lanes
+    assert plan.threads == G * L and plan.threads % 32 == 0
+    assert plan.threads <= 256
+    if L <= 32:
+        assert 32 % L == 0        # a row's lanes inside one warp
+    else:
+        assert L % 32 == 0 and G == 1   # whole warps; the block is the row
+    if dt == torch.bfloat16:
+        assert L == {512: 32, 768: 32, 1024: 64, 1536: 64}.get(D, L)
+        assert plan.vecs <= 4
+    # every vector of a row on one lane, once: j = lane + k * lanes
+    j = (np.arange(L)[:, None] + np.arange(plan.vecs)[None, :] * L).ravel()
+    assert np.array_equal(np.sort(j[j < nv]), np.arange(nv))
+    assert (plan.vecs - 1) * L < nv
+    # registers a lane's loads fill (4 a raw vector, V for its f32 scale),
+    # and 16 to spare, within what csrc/rmsnorm.cu's __launch_bounds__
+    # leaves a thread: 3 blocks of 256 an SM up to 4 vectors, else 2
+    blocks = 3 if plan.vecs <= 4 else 2
+    V = 16 // dt.itemsize
+    assert plan.vecs * (4 + V) + 16 <= 65536 // (256 * blocks)
+    # the rows: block b, group g -> b * G + g
+    assert plan.grid == -(-rows // G)
+    b, g = np.meshgrid(np.arange(plan.grid), np.arange(G), indexing="ij")
+    r = (b * G + g).ravel()
+    assert np.array_equal(np.sort(r[r < rows]), np.arange(rows))
+    # blocks of narrow rows enough for every SM, where the rows allow
+    assert plan.grid >= min(rows, _H100_SMS) or G == 4 * max(1, 32 // L)
+
+
+@pytest.mark.parametrize("D,dtype,exc", [
+    (0, torch.bfloat16, ValueError), (4, torch.float32, ValueError),
+    (12, torch.bfloat16, ValueError), (8200, torch.bfloat16, ValueError),
+    (16384, torch.float32, ValueError), (1024, torch.float16, TypeError),
+    (1024, torch.float64, TypeError)])
+def test_rmsnorm_plan_refuses_what_the_contract_refuses(D, dtype, exc):
+    with pytest.raises(exc):
+        rmsnorm_plan(16, D, dtype, _H100_SMS)
+
+
+def test_rmsnorm_plan_refuses_no_rows():
+    with pytest.raises(ValueError):
+        rmsnorm_plan(0, 1024, torch.bfloat16, _H100_SMS)
+
+
+def test_rmsnorm_plan_every_width_the_contract_takes():
+    """Every D the contract takes (multiples of 8 up to 8192) has a plan
+    the C entry point accepts: lanes a power of two up to 32 or whole
+    warps up to 8, at most 8 vectors a lane (4 in bf16) covering the
+    row."""
+    for dt in (torch.bfloat16, torch.float32):
+        for D in range(8, 8193, 8):
+            p = rmsnorm_plan(3, D, dt, _H100_SMS)
+            nv = D // (8 if dt == torch.bfloat16 else 4)
+            assert (p.lanes <= 32 and p.lanes & (p.lanes - 1) == 0) or (
+                p.lanes % 32 == 0 and p.lanes <= 256)
+            assert 1 <= p.vecs <= (4 if dt == torch.bfloat16 else 8)
+            assert p.vecs * p.lanes >= nv
+
+
+def test_ops_rmsnorm_takes_any_leading_shape_on_the_cpu():
+    """``ops.rmsnorm`` is the wrapper module's ``rmsnorm``: on the CPU
+    (plain version) x (..., D), contiguous or not, gives the bits of
+    ``rmsnorm_rows`` on its rows."""
+    assert ops.rmsnorm is RN.rmsnorm
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(3, 5, 64, generator=g).to(torch.bfloat16)
+    s = torch.randn(64, generator=g) * 0.1 + 1.0
+    for xi in (x, x.transpose(0, 1), x[:, :, :64], x[0]):
+        want = rmsnorm_rows(xi.reshape(-1, 64), s).reshape(xi.shape)
+        assert torch.equal(ops.rmsnorm(xi, s), want)
 
 
 # --------------------------------------------------------------------------
@@ -416,6 +511,102 @@ def test_rmsnorm_kernel_at_deepseek_widths_on_card(cuda, D):
     torch.testing.assert_close(out.float(), rmsnorm_rows_plain(x, s).float(),
                                rtol=tol, atol=tol)
     assert torch.equal(out, rmsnorm_rows(x, s))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("R", [1, 8, 4096])
+@pytest.mark.parametrize("D", _RMS_WIDTHS)
+def test_rmsnorm_kernel_at_every_config_width_on_card(cuda, D, R, dtype):
+    """Every width the configs normalise, at a decode step's 1 and 8 rows
+    and a prefill's 4,096, against the plain version; one launch a call,
+    the same bits on a second call, and ``ops.rmsnorm`` on the rows as
+    (R, 1, D) (launched without a reshape) gives them too."""
+    g = torch.Generator().manual_seed(D + R)
+    dt = getattr(torch, dtype)
+    x = torch.randn(R, D, generator=g).to(cuda, dt)
+    s = (torch.randn(D, generator=g) * 0.1 + 1.0).to(cuda)
+    before = rmsnorm_rows.launches
+    out = rmsnorm_rows(x, s)
+    torch.cuda.synchronize()
+    assert rmsnorm_rows.launches == before + 1
+    tol = _TOL[dtype]
+    torch.testing.assert_close(out.float(), rmsnorm_rows_plain(x, s).float(),
+                               rtol=tol, atol=tol)
+    assert torch.equal(out, rmsnorm_rows(x, s))
+    three = ops.rmsnorm(x.view(R, 1, D), s)
+    assert three.shape == (R, 1, D) and torch.equal(three.view(R, D), out)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernel_on_the_current_stream_on_card(cuda):
+    """The kernel launches on the current stream: a side stream's call
+    and a CUDA graph's replay give the default stream's bits; an x
+    through ``ops.rmsnorm`` whose rows need a copy is normalised as
+    that copy."""
+    g = torch.Generator().manual_seed(5)
+    x = torch.randn(4096, 1024, generator=g).to(cuda, torch.bfloat16)
+    s = (torch.randn(1024, generator=g) * 0.1 + 1.0).to(cuda)
+    want = rmsnorm_rows(x, s)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        got = rmsnorm_rows(x, s)
+    torch.cuda.current_stream().wait_stream(side)
+    assert torch.equal(got, want)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        y = rmsnorm_rows(x, s)
+    graph.replay()
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+    wide = torch.randn(64, 2, 1024, generator=g).to(cuda, torch.bfloat16)
+    t = wide.transpose(0, 1)
+    assert torch.equal(ops.rmsnorm(t, s).reshape(-1, 1024),
+                       rmsnorm_rows(t.reshape(-1, 1024), s))
+
+
+@pytest.mark.cuda
+def test_rmsnorm_raises_on_inputs_it_does_not_take_on_card(cuda):
+    """Every input the kernel does not take raises, before and after a
+    launch for the same shape has been made (the call path keeps one
+    per shape): x or scale off the card or elsewhere, a dtype other
+    than f32/bf16 or a scale other than f32, shapes other than (R, D)
+    and (D,), D not a multiple of 8 up to 8192, non-contiguous or
+    unaligned inputs; none of them launches."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn(16, 1024, generator=g).to(cuda, torch.bfloat16)
+    s = torch.ones(1024, device=cuda)
+    flat = torch.randn(16 * 1024 + 8, generator=g).to(cuda, torch.bfloat16)
+    bad = [
+        (ValueError, x, s.cpu()),
+        (TypeError, x.half(), s),
+        (TypeError, x, s.double()),
+        (TypeError, x, s.to(torch.bfloat16)),
+        (ValueError, x.view(16, 1, 1024), s),
+        (ValueError, x, s[:512]),
+        (ValueError, x, torch.ones(1, 1024, device=cuda)),
+        (ValueError, x[:, :1020], s[:1020]),
+        (ValueError, torch.zeros(4, 8200, device=cuda), torch.ones(
+            8200, device=cuda)),
+        (ValueError, x.t().contiguous().t(), s),
+        (ValueError, x, torch.ones(2048, device=cuda)[::2]),
+        (ValueError, flat[1:1 + 16 * 1024].view(16, 1024), s),
+        (ValueError, x, torch.ones(1025, device=cuda)[1:]),
+    ]
+    for warm in (False, True):
+        if warm:
+            rmsnorm_rows(x, s)
+            rmsnorm_rows(torch.zeros(4, 8200, device=cuda)[:, :8192]
+                         .contiguous(), torch.ones(8192, device=cuda))
+        before = rmsnorm_rows.launches
+        for exc, xi, si in bad:
+            with pytest.raises(exc):
+                rmsnorm_rows(xi, si)
+        assert rmsnorm_rows.launches == before
+    with pytest.raises(ValueError):
+        ops.rmsnorm(x.view(4, 4, 1024), s.cpu())
+    assert torch.equal(rmsnorm_rows(x[:0], s), x[:0])
 
 
 @pytest.mark.cuda

@@ -525,6 +525,62 @@ def test_train_on_cpu_resumes_and_serves(tmp_path):
     assert all(len(t) == 3 for t in stats["outputs"].values())
 
 
+@pytest.mark.parametrize("sharded", [False, True], ids=["none", "host_mesh"])
+def test_resume_or_init_accepts_shardings(tmp_path, sharded):
+    """F8: the reference's call ``resume_or_init(p, o, shardings=...)``
+    runs on the port, and the keyword stands in for the loop's
+    ``shardings`` field for that call.  Without a mesh, ``shardings=None``
+    gives the call without it, which gives the reference's loop's step,
+    data state and values on the same checkpoint; with the host mesh's
+    shardings, the keyword gives the blocks (plain tensors) that a loop
+    whose field holds them gives, bit for bit."""
+    import repro.train.loop as RL
+
+    from repro_torch.launch import make_host_mesh
+    from repro_torch.pytree import flatten
+    from repro_torch.train import LoopConfig, TrainLoop, init_train_state
+    from repro_torch.train.checkpoint import save_checkpoint
+    from repro_torch.train.sharded import train_state_shardings
+    cfg = pt_configs.get_config("qwen1.5-0.5b", "smoke")
+    p, o = init_train_state(cfg, seed=3, device="cpu")
+    d = str(tmp_path)
+    save_checkpoint(d, 7, {"params": p, "opt": o},
+                    extra={"step": 7, "data": {"step": 7}})
+    p0, o0 = init_train_state(cfg, seed=0, device="cpu")
+    shd = train_state_shardings(p0, make_host_mesh("cpu")) if sharded \
+        else None
+
+    def loop(field=None):
+        return TrainLoop(step_fn=None, cfg=LoopConfig(ckpt_dir=d),
+                         data=SyntheticLM(DataConfig(cfg.vocab, 8, 2)),
+                         shardings=field)
+
+    def leaves(res):
+        return [t for _, t in flatten({"params": res[0], "opt": res[1]})]
+
+    by_kw, by_field = loop(), loop(shd)
+    got = by_kw.resume_or_init(p0, o0, shardings=shd)
+    want = by_field.resume_or_init(p0, o0)
+    assert got[2] == want[2] == 7
+    assert by_kw.data.step == by_field.data.step == 7
+    saved = leaves((p, o))
+    for g, w, s in zip(leaves(got), leaves(want), saved, strict=True):
+        assert type(g) is torch.Tensor and type(w) is torch.Tensor
+        assert torch.equal(g, w) and torch.equal(g, s)
+    if sharded:
+        return
+    to_ref = lambda t: jnp.asarray(t.numpy())  # noqa: E731
+    ref = RL.TrainLoop(step_fn=None, cfg=RL.LoopConfig(ckpt_dir=d),
+                       data=RSyntheticLM(RDataConfig(cfg.vocab, 8, 2)))
+    rp, ro, rstep = ref.resume_or_init(jax.tree.map(to_ref, p0),
+                                       jax.tree.map(to_ref, o0),
+                                       shardings=None)
+    assert rstep == got[2] and ref.data.step == by_kw.data.step
+    ref_leaves = jax.tree_util.tree_leaves({"params": rp, "opt": ro})
+    for g, r in zip(leaves(got), ref_leaves, strict=True):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(r))
+
+
 def test_train_cli_and_meshes(tmp_path, capsys):
     assert train_main(["--device", "cpu", "--steps", "2", "--batch", "2",
                        "--seq", "16", "--ckpt-dir", str(tmp_path),

@@ -36,24 +36,9 @@ from pathlib import Path
 
 import torch
 
-HERE = Path(__file__).resolve().parents[1]
+from turns import HERE, port_as
+
 PAIRS = 640
-
-
-def _port(tree: Path, name: str) -> None:
-    """``tree``'s ``src/repro_torch`` imported as the package ``name``,
-    its kernel library built."""
-    if name == "repro_torch":
-        sys.path.insert(0, str(tree / "src"))
-    else:
-        alias = tree / "build" / "alias"
-        alias.mkdir(parents=True, exist_ok=True)
-        link = alias / name
-        if not link.exists():
-            link.symlink_to(tree / "src" / "repro_torch",
-                            target_is_directory=True)
-        sys.path.insert(0, str(alias))
-    importlib.import_module(name + ".kernels.build").library()
 
 
 def _dist_calls(fn) -> dict[str, int]:
@@ -102,7 +87,7 @@ def main(argv=None) -> int:
     for side, tree, name in (("earlier", args.parent.resolve(),
                               "repro_torch_parent"),
                              ("this", HERE, "repro_torch")):
-        _port(tree, name)
+        port_as(tree, name)
         T = importlib.import_module(name + ".models.transformer")
         cfg = importlib.import_module(name + ".configs").get_config(
             args.arch, "full")

@@ -1,6 +1,6 @@
-"""What the ``*_turns.py`` tools share: the earlier tree's kernel library,
-variant builds of this checkout's kernel sources, CUDA-event timing and
-the profiler's device events.
+"""What the ``*_turns.py`` tools share: the earlier tree's kernel library
+and package, variant builds of this checkout's kernel sources, CUDA-event
+timing (of calls and of CUDA graphs) and the profiler's device events.
 
 The tools run as scripts (``python3 tools/<kernel>_turns.py``), which puts
 this directory first on ``sys.path``; they import this module as
@@ -10,8 +10,10 @@ this directory first on ``sys.path``; they import this module as
 from __future__ import annotations
 
 import ctypes
+import importlib
 import importlib.util
 import re
+import sys
 import subprocess
 import time
 from pathlib import Path
@@ -39,6 +41,25 @@ def parent_build(parent: Path):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def port_as(tree: Path, name: str):
+    """``tree``'s ``src/repro_torch`` imported as the package ``name``
+    (``repro_torch`` itself for this checkout; another tree's through a
+    symlink under ``<tree>/build/alias``), its kernel library built;
+    returns the package."""
+    if name == "repro_torch":
+        sys.path.insert(0, str(tree / "src"))
+    else:
+        alias = tree / "build" / "alias"
+        alias.mkdir(parents=True, exist_ok=True)
+        link = alias / name
+        if not link.exists():
+            link.symlink_to(tree / "src" / "repro_torch",
+                            target_is_directory=True)
+        sys.path.insert(0, str(alias))
+    importlib.import_module(name + ".kernels.build").library()
+    return importlib.import_module(name)
 
 
 def parent_library(parent: Path) -> ctypes.CDLL:
@@ -126,6 +147,30 @@ def time_ms(fn, n: int = 20, warm: int = 3, repeats: int = 5) -> float:
         b.synchronize()
         runs.append(a.elapsed_time(b) / n)
     return float(np.median(runs))
+
+
+def graph_us(fn, args: list, n: int = 50) -> float:
+    """Device µs per call from CUDA events around the replay of a CUDA
+    graph of ``n`` calls, call i on ``args[i % len(args)]``, every output
+    kept until the replay ends (so no call finds its input or output in L2
+    once the arguments span more than it)."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn(*args[0])
+    torch.cuda.current_stream().wait_stream(side)
+    graph, outs = torch.cuda.CUDAGraph(), []
+    with torch.cuda.graph(graph):
+        for i in range(n):
+            outs.append(fn(*args[i % len(args)]))
+    graph.replay()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) * 1e3 / n
 
 
 def device_events(fn, n: int, tries: int = 5) -> list[tuple[str, float]]:
