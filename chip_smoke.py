@@ -125,7 +125,9 @@ no phase catches its own failure:
 11. serve-refined — ``serve`` on qwen1.5-0.5b at full width with
               ``policy="refined"`` (``refine_model`` "rounds", then
               "event" with ``refine_backend="batched"``) on §5's
-              requests: every request finishes with §5's tokens;
+              requests (the second run on the first ``SERVE_AGAIN``
+              of them, fewer new tokens each): every request finishes
+              with §5's tokens;
 12. jamba   — jamba-v0.1-52b at full width, depth cut to one period of 8
               layers (seven Mamba, one attention, four MoE; bf16, weights
               drawn on the card from seed 0): ``prefill_logits`` at
@@ -134,10 +136,11 @@ no phase catches its own failure:
               logits, ms per call, prompt tokens/s, peak memory and a
               profiled call each (the scan's and flash's device shares);
 13. serve-jamba — the same model through ``ServingEngine`` on §5's
-              requests (policy symbiotic, ``max_len`` 512, 32 new
-              tokens): every request finishes, 17 RMSNorm and 1
-              decode-attention launches per ``decode_step`` and no scan
-              (decode is the plain recurrence, as in the reference);
+              first ``SERVE_AGAIN`` requests (policy symbiotic,
+              ``max_len`` 512, fewer new tokens): every request
+              finishes, 17 RMSNorm and 1 decode-attention launches per
+              ``decode_step`` and no scan (decode is the plain
+              recurrence, as in the reference);
 14. jamba f32 — the same weights cast to f32 (TF32 off):
               ``prefill_logits`` at B 1 x S 512 through the kernels
               against ``impl="xla"``, within 1e-3 with the same argmax;
@@ -149,8 +152,8 @@ no phase catches its own failure:
               call, finite logits, ms per call beside the operations
               bound, prompt tokens/s, peak memory and a profiled call
               (the MLA attention einsums' device share);
-16. serve-deepseek — the same model through ``ServingEngine`` on §5's
-              requests: every request finishes, 33 RMSNorm and no
+16. serve-deepseek — the same model through ``ServingEngine`` as in
+              §13: every request finishes, 33 RMSNorm and no
               decode-attention launch per ``decode_step``, ms per step
               beside the weight-read floor, and a decode profile (the
               device's busy share);
@@ -163,7 +166,7 @@ no phase catches its own failure:
               ``prefill_logits`` at B 1 x S 8192 (the 4,096 window
               active), exactly 16 flash and 33 RMSNorm launches per
               call, ms beside the operations bound; the same model
-              through ``ServingEngine`` on §5's requests as in §16:
+              through ``ServingEngine`` as in §13:
               every request finishes, exactly 16 decode-attention and 33
               RMSNorm launches a step, ms per step beside the weight-read
               floor, and a decode profile;
@@ -187,15 +190,19 @@ no phase catches its own failure:
               through JSONL;
 20. xlstm   — xlstm-125m at full width (12 layers: 6 sLSTM, 6 mLSTM; d
               768; bf16, weights drawn on the card from seed 0, nothing
-              cut): §5's requests through ``ServingEngine``, every
+              cut): ``ServingEngine`` as in §13, every
               request finished, exactly 13 RMSNorm launches (12 norm1
               and the final norm) and no attention launch per
               ``decode_step``, ms per step beside the weight-read floor;
               ``prefill_logits`` at B 1 x S 2048 and B 8 x S 512, 13
               RMSNorm launches a call, ms per call, peak memory; in f32
-              (TF32 off) the forward's logits on a 64-token prompt
-              within 1e-3 of a decode replay at every position, with the
-              same argmax (the chunkwise mLSTM against its recurrence);
+              (TF32 off) the forward's logits on a 64-token prompt (a
+              generator of its own) against a decode replay (the
+              chunkwise mLSTM against its recurrence): the largest gap
+              over the largest |logit| within ``XLSTM_REPLAY_BOUND``, a
+              multiple of the JAX reference's worst, and the same argmax
+              wherever the top two logits stand more than twice the
+              bound apart (at most 4 of 64 positions skipped);
 21. train   — ``repro_torch.launch.train.train`` on qwen1.5-0.5b at full
               width (f32 master weights, bf16 compute, ``SyntheticLM``,
               global batch 8 x seq 1024): a timed train step (ms,
@@ -203,15 +210,17 @@ no phase catches its own failure:
               TFLOP/s; exactly 97 RMSNorm launches a step, 49 forward
               and 48 recomputed under remat, and no other kernel; one
               more step under the profiler, its top kernels); 20
-              steps straight with checkpoints every 10 (every loss
+              steps straight, one checkpoint at their end (every loss
               finite, the last 5's mean below the first 5's); the same
-              20-step run preempted after its step-10 checkpoint (its
-              ``log_fn`` raises at step 10) and resumed by a second call
-              on the same directory: it starts at step 10 with the data
-              pipeline's state and its losses are within 1e-2 of the
-              straight run's (room for sums whose order may change from
-              run to run); ``serve(..., ckpt_dir=...)`` from
-              the result (``CKPT_SERVE``), every request finished;
+              20-step run, checkpoints every 10, preempted after its
+              step-10 checkpoint (its ``log_fn`` raises at step 10) and
+              resumed by a second call on the same directory: it starts
+              at step 10 with the data pipeline's state, its losses are
+              within 1e-2 of the straight run's (room for sums whose
+              order may change from run to run) and the directory ends
+              with the checkpoints of steps 10 and 20;
+              ``serve(..., ckpt_dir=...)`` from the result
+              (``CKPT_SERVE``), every request finished;
               xlstm-125m at full width for ``XLSTM_TRAIN_STEPS`` steps at
               B 8 x S 512, finite losses and
               gradient norms, 25 RMSNorm launches a step;
@@ -340,11 +349,26 @@ LIVE_MAX_STAGES = None
 #: the profiled bursty workload (device busy share): requests, prompt and
 #: new-token ranges
 LIVE_PROFILED = (2, (24, 64), (4, 8))
-#: §21: xlstm-125m's train steps (7-12 s each: the sLSTM recurrence's
-#: host loop); the first runs every path, the second the update's result
-XLSTM_TRAIN_STEPS = 2
+#: §21: xlstm-125m's train steps (9-14 s each: the sLSTM recurrence's
+#: host loop): one runs every xLSTM path; qwen's 45 steps run on the
+#: optimizer's results
+XLSTM_TRAIN_STEPS = 1
 #: §21: requests served from the resumed run's checkpoint, new tokens each
 CKPT_SERVE = (2, 4)
+#: §20: xlstm-125m's f32 forward against its decode replay, the largest
+#: gap over the largest |logit|.  The JAX reference's worst over 16 seeded
+#: cases at full width (weight seeds 0 and 1, prompt seeds 0-7, 64 tokens;
+#: ``tools/xlstm_replay_gap.py`` on the CPU): weight seed 1, prompt 4.
+#: The bound is a multiple of it, and the prompt has a generator of its
+#: own
+XLSTM_REF_GAP = 8.4727e-4
+XLSTM_REPLAY_MULTIPLE = 1.5
+XLSTM_REPLAY_BOUND = XLSTM_REPLAY_MULTIPLE * XLSTM_REF_GAP
+XLSTM_PROMPT_SEED = 0
+#: §11's second refined run and the served models (§13, §16, §18, §20):
+#: §5's first requests and new tokens each, on the engine and policy that
+#: an earlier run of the script took on all of §5's
+SERVE_AGAIN = (3, 8)
 
 
 class SmokeFailure(RuntimeError):
@@ -463,10 +487,15 @@ def profiled(block, tries: int = 5, on_prof=None, want: dict | None = None):
     ``want``'s launches of a kernel where ``want`` is given, while the
     wrappers' counters saw them all) is printed and ``block`` runs again
     after a pause, ``tries`` sessions at most.  ``on_prof`` gets the
-    session that recorded, for readings other than the device rows."""
+    session that recorded, for readings other than the device rows; only
+    then are the CPU's operators recorded too (reading a session costs
+    host time by the event, and a step runs several operators for each
+    kernel it launches)."""
+    activities = [ProfilerActivity.CUDA]
+    if on_prof is not None:
+        activities.append(ProfilerActivity.CPU)
     for attempt in range(tries):
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        with profile(activities=activities) as prof:
             out = block()
         rows = device_rows(prof)
         if rows and (want is None or launches_in(rows, want)):
@@ -2928,21 +2957,27 @@ def main(argv=None) -> int:
 
     clock[10] = round(time.perf_counter() - T_START, 1)
     # 11. refined serving at full width ----------------------------------
+    # the second run takes the refined path again, on SERVE_AGAIN's share
+    # of §5's requests
     refined_rep = {}
-    for kw in ({}, {"refine_model": "event", "refine_backend": "batched"}):
+    for kw, (n_req, n_new) in (
+            ({}, (8, 32)),
+            ({"refine_model": "event", "refine_backend": "batched"},
+             SERVE_AGAIN)):
         label = ", ".join(f"{k}={v}" for k, v in kw.items()) or \
             "refine_model=rounds (default)"
-        print(f"[serve-refined] qwen1.5-0.5b full, §5's 8 requests, policy "
-              f"refined, {label}")
+        print(f"[serve-refined] qwen1.5-0.5b full, §5's first {n_req} "
+              f"requests, {n_new} new tokens each, policy refined, {label}")
         reset_launch_counts()
-        st = serve("qwen1.5-0.5b", variant="full", n_requests=8,
-                   max_len=512, max_new_tokens=32, policy="refined", **kw)
+        st = serve("qwen1.5-0.5b", variant="full", n_requests=n_req,
+                   max_len=512, max_new_tokens=n_new, policy="refined", **kw)
         counts = launch_counts()
         steps = st["prompt_tokens"] + sum(len(t) - 1
                                           for t in st["outputs"].values())
-        require(st["outputs"] == outputs,
+        require(st["outputs"] == {i: outputs[i][:n_new]
+                                  for i in range(n_req)},
                 f"refined serving ({label}): tokens differ from §5's")
-        require(st["latency"]["completed"] == 8,
+        require(st["latency"]["completed"] == n_req,
                 f"refined serving ({label}): not every request finished")
         require(counts == {"rmsnorm": 49 * steps,
                            "decode_attention": 24 * steps,
@@ -3060,15 +3095,16 @@ def main(argv=None) -> int:
         return rep, rows
 
     def serve_runs(tag, params, cfg, want):
-        """§5's 8 requests through ServingEngine (symbiotic, max_len 512,
-        32 new tokens), the counters set to 0 just before and read just
-        after: ``want`` launches per ``decode_step``."""
+        """§5's first ``SERVE_AGAIN`` requests through ServingEngine
+        (symbiotic, max_len 512), the counters set to 0 just before and
+        read just after: ``want`` launches per ``decode_step``."""
+        n_req, n_new = SERVE_AGAIN
         rng = np.random.default_rng(0)
         reqs = []
-        for i in range(8):   # serve()'s seeded requests, as in §5
+        for i in range(n_req):   # serve()'s seeded requests, as in §5
             plen = int(rng.integers(4, max(5, 512 // 4)))
             reqs.append(Request(i, rng.integers(0, cfg.vocab, size=plen),
-                                max_new_tokens=32))
+                                max_new_tokens=n_new))
         eng = ServingEngine(cfg, params, max_len=512,
                             policy=SchedulerPolicy(kind="symbiotic"))
         eng.submit(reqs)
@@ -3083,7 +3119,8 @@ def main(argv=None) -> int:
         outs = st["outputs"]
         steps = sum(len(r.prompt) for r in reqs) + sum(len(t) - 1
                                                        for t in outs.values())
-        require(len(outs) == 8 and all(len(t) == 32 for t in outs.values()),
+        require(len(outs) == n_req
+                and all(len(t) == n_new for t in outs.values()),
                 f"{tag}: not every request finished: {outs}")
         full = {k: want.get(k, 0) * steps for k in counts}
         require(counts == full, f"{tag}: launches {counts} over {steps} "
@@ -3191,8 +3228,9 @@ def main(argv=None) -> int:
 
     clock[12] = round(time.perf_counter() - T_START, 1)
     # 13. jamba served ----------------------------------------------------
-    print("[serve-jamba] the same model through ServingEngine: §5's 8 "
-          "requests, max_len 512, 32 new tokens each, policy symbiotic")
+    print(f"[serve-jamba] the same model through ServingEngine: §5's first "
+          f"{SERVE_AGAIN[0]} requests, max_len 512, {SERVE_AGAIN[1]} new "
+          "tokens each, policy symbiotic")
     jamba_rep["serving"], _ = serve_runs(
         "serve-jamba", params, cfg_j, {"rmsnorm": 17, "decode_attention": 1})
 
@@ -3256,8 +3294,9 @@ def main(argv=None) -> int:
 
     clock[15] = round(time.perf_counter() - T_START, 1)
     # 16. deepseek served -------------------------------------------------
-    print("[serve-deepseek] the same model through ServingEngine: §5's 8 "
-          "requests, max_len 512, 32 new tokens each, policy symbiotic")
+    print(f"[serve-deepseek] the same model through ServingEngine: §5's "
+          f"first {SERVE_AGAIN[0]} requests, max_len 512, {SERVE_AGAIN[1]} "
+          "new tokens each, policy symbiotic")
     ds_rep["serving"], _ = serve_runs("serve-deepseek", params, cfg_d, want_d)
     ds_serve_counts = ds_rep["serving"]["launches"]
     ds_rep["decode_profile"] = step_profile("serve-deepseek", params, cfg_d)
@@ -3346,9 +3385,10 @@ def main(argv=None) -> int:
           f"device time)")
     mx_rep["B1xS8192"] = rep
     mixtral_prefill_counts = rep["launches"]
-    # served: §5's 8 requests, as §13 and §16 serve theirs
-    print("[serve-mixtral] the same model through ServingEngine: §5's 8 "
-          "requests, max_len 512, 32 new tokens each, policy symbiotic")
+    # served as §13 and §16 serve theirs
+    print(f"[serve-mixtral] the same model through ServingEngine: §5's "
+          f"first {SERVE_AGAIN[0]} requests, max_len 512, {SERVE_AGAIN[1]} "
+          "new tokens each, policy symbiotic")
     want_md = {"rmsnorm": 2 * cfg_m.n_layers + 1,
                "decode_attention": cfg_m.n_layers}
     mx_rep["serving"], _ = serve_runs("serve-mixtral", params, cfg_m, want_md)
@@ -3625,10 +3665,11 @@ def main(argv=None) -> int:
     clock[19] = round(time.perf_counter() - T_START, 1)
     # 20. xlstm-125m at full width ------------------------------------------
     # 12 layers, d 768, bf16, seeded weights drawn on the card, nothing cut:
-    # §5's requests through ServingEngine (13 RMSNorm launches a decode
-    # step: 12 norm1 and the final norm; no attention), prefill_logits at
-    # B 1 x S 2048 and B 8 x S 512, and in f32 the forward (the chunkwise
-    # mLSTM) against a decode replay (its recurrence) at every position
+    # §5's first requests through ServingEngine (13 RMSNorm launches a
+    # decode step: 12 norm1 and the final norm; no attention),
+    # prefill_logits at B 1 x S 2048 and B 8 x S 512, and in f32 the
+    # forward (the chunkwise mLSTM) against a decode replay (its
+    # recurrence) at every position
     cfg_x = get_config("xlstm-125m", "full")
     print("[xlstm] xlstm-125m full width (12 layers: 6 sLSTM, 6 mLSTM; "
           "d 768), bf16, seed 0")
@@ -3678,7 +3719,10 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
     cfg_x32 = cfg_x.replace(dtype="float32")
     params_x32 = T.init(cfg_x32, seed=0, device=dev, draw_device="cuda")
-    prompt = torch.randint(0, cfg_x32.vocab, (1, 64), generator=gen).to(dev)
+    # the prompt from a generator of its own: no earlier draw moves it
+    prompt_gen = torch.Generator().manual_seed(XLSTM_PROMPT_SEED)
+    prompt = torch.randint(0, cfg_x32.vocab, (1, 64),
+                           generator=prompt_gen).to(dev)
     with torch.inference_mode():
         full, _ = T.forward(params_x32, cfg_x32, prompt)
         cache = T.init_cache(cfg_x32, 1, 64, dtype=torch.float32, device=dev)
@@ -3688,14 +3732,40 @@ def main(argv=None) -> int:
                                       cache, pos)
             rows.append(lg)
     dec = torch.stack(rows, dim=1)
+    # relative to the largest |logit|, as the reference's own property test
+    # holds them; the argmax is checked where the top two logits stand more
+    # than twice the bound apart
+    scale = full.abs().max().item()
     diff = (full - dec).abs().max().item()
-    same = bool((full.argmax(-1) == dec.argmax(-1)).all())
-    print(f"[xlstm] f32 (TF32 off), 64-token prompt: forward (chunkwise "
-          f"mLSTM) vs decode replay (its recurrence) max logit diff "
-          f"{diff:.3e} over 64 positions (bound 1e-3), same argmax at "
-          f"every position {same}")
-    require(diff < 1e-3 and same, "xlstm: forward and decode replay differ")
-    xl_rep["f32_forward_vs_replay_max_diff"] = diff
+    gap = diff / scale
+    top2 = full.topk(2, dim=-1).values
+    margin = ((top2[..., 0] - top2[..., 1]) / scale).flatten()
+    checked = margin > 2 * XLSTM_REPLAY_BOUND
+    skipped = int((~checked).sum())
+    same = bool((full.argmax(-1) == dec.argmax(-1)).flatten()[checked].all())
+    margins = sorted(margin.tolist())[:6]
+    print(f"[xlstm] f32 (TF32 off), 64-token prompt (seed "
+          f"{XLSTM_PROMPT_SEED}): forward (chunkwise mLSTM) vs decode replay "
+          f"(its recurrence) max logit diff {diff:.3e} of max |logit| "
+          f"{scale:.4f}: gap {gap:.4e} against a bound of "
+          f"{XLSTM_REPLAY_BOUND:.4e} ({XLSTM_REPLAY_MULTIPLE:g} x the JAX "
+          f"reference's worst gap {XLSTM_REF_GAP:.4e}); same argmax at the "
+          f"{64 - skipped} positions whose top-two margin exceeds twice "
+          f"the bound ({skipped} of 64 skipped, at most 4): {same}; the "
+          f"smallest margins over max |logit| "
+          f"{[float(f'{m:.3e}') for m in margins]}")
+    if gap > XLSTM_REF_GAP:
+        print(f"[xlstm]   the card's gap {gap:.4e} exceeds the reference's "
+              f"worst {XLSTM_REF_GAP:.4e}")
+    require(gap <= XLSTM_REPLAY_BOUND and same and skipped <= 4,
+            f"xlstm: forward and decode replay differ (gap {gap:.4e}, bound "
+            f"{XLSTM_REPLAY_BOUND:.4e}; argmax equal {same}, {skipped} "
+            "positions skipped)")
+    xl_rep["f32_forward_vs_replay"] = {
+        "max_abs_diff": diff, "max_abs_logit": scale, "gap": gap,
+        "bound": XLSTM_REPLAY_BOUND, "reference_worst_gap": XLSTM_REF_GAP,
+        "argmax_positions_skipped": skipped, "smallest_margins": margins,
+        "prompt_seed": XLSTM_PROMPT_SEED}
     del params_x32, cache, full, dec
     xl_rep["phase_s"] = time.perf_counter() - t20
     report["xlstm"] = xl_rep
@@ -3705,8 +3775,8 @@ def main(argv=None) -> int:
     # 21. training at full width ---------------------------------------------
     # repro_torch.launch.train.train on qwen1.5-0.5b (f32 master weights,
     # bf16 compute, SyntheticLM, global batch 8 x seq 1024): a timed run of
-    # the train step, 20 steps straight with checkpoints every 10, the
-    # same 20-step run preempted after its step-10 checkpoint and resumed
+    # the train step, 20 steps straight, the same 20-step run with
+    # checkpoints every 10 preempted after its step-10 checkpoint and resumed
     # by a second call on the same directory, and serve() from the result;
     # then xlstm-125m at full width for XLSTM_TRAIN_STEPS steps at B 8 x
     # S 512
@@ -3797,8 +3867,10 @@ def main(argv=None) -> int:
         kw = dict(variant="full", steps=20, global_batch=8, seq_len=1024,
                   ckpt_every=10)
         reset_launch_counts()
+        # the straight run saves only its end (5.6 GB a save); the
+        # preempted run saves at 10 and its resumption at its end, 20
         straight = train("qwen1.5-0.5b", ckpt_dir=str(ck_root / "straight"),
-                         **kw)
+                         **{**kw, "ckpt_every": 0})
         train_counts = launch_counts()
         losses = straight["losses"]
         require(train_counts == {k: per_step * 20 if k == "rmsnorm" else 0
@@ -3806,17 +3878,13 @@ def main(argv=None) -> int:
                 f"train(): launches {train_counts} over 20 steps; want "
                 f"{per_step} RMSNorm a step")
         first5, last5 = float(np.mean(losses[:5])), float(np.mean(losses[-5:]))
-        print(f"[train] train() 20 steps straight (checkpoints at 10 and "
+        print(f"[train] train() 20 steps straight (one checkpoint, at "
               f"20): losses {[round(v, 4) for v in losses]}; mean of the "
               f"first 5 {first5:.4f}, of the last 5 {last5:.4f}; "
               f"{straight['seconds']:.1f} s with checkpoint I/O; launches "
               f"{train_counts}")
         require(len(losses) == 20 and all(np.isfinite(losses))
                 and last5 < first5, "train(): the loss did not fall")
-        saved = sorted(x for x in os.listdir(ck_root / "straight")
-                       if x.startswith("step_"))
-        require(saved == ["step_00000010", "step_00000020"],
-                f"train(): checkpoints {saved}")
         shutil.rmtree(ck_root / "straight")
         torch.cuda.empty_cache()
 
@@ -3844,7 +3912,8 @@ def main(argv=None) -> int:
             time.sleep(0.5)
         with open(resume_dir / "step_00000010" / "MANIFEST.json") as f:
             extra = json.load(f)["extra"]
-        resumed = train("qwen1.5-0.5b", ckpt_dir=str(resume_dir), **kw)
+        resumed = train("qwen1.5-0.5b", ckpt_dir=str(resume_dir),
+                        **{**kw, "ckpt_every": 0})
         rl = resumed["losses"]
         rdiff = max(abs(a - b) for a, b in zip(rl, losses[10:]))
         print(f"[train] preempted after the step-10 checkpoint (manifest "
@@ -3854,6 +3923,10 @@ def main(argv=None) -> int:
         require(extra == {"step": 10, "data": {"step": 10}}
                 and len(rl) == 10 and rdiff < 1e-2,
                 "the resumed run does not continue the straight one")
+        saved = sorted(x for x in os.listdir(resume_dir)
+                       if x.startswith("step_"))
+        require(saved == ["step_00000010", "step_00000020"],
+                f"train(): checkpoints {saved}")
         n_req, n_new = CKPT_SERVE
         st = serve("qwen1.5-0.5b", variant="full", n_requests=n_req,
                    max_new_tokens=n_new, ckpt_dir=str(resume_dir))

@@ -11,15 +11,7 @@ import torch
 from repro_torch.configs import arch_names, get_config
 from repro_torch.models import transformer as T
 from repro_torch.pytree import flatten, unflatten
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the driver runs six test workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 def _batch_for(cfg, seed, B=2, S=16):

@@ -26,6 +26,7 @@ import repro_torch.core.batched as PB
 import repro_torch.core.refine as PR
 import repro_torch.core.seeded as S
 import repro_torch.core.tpu as PTPU
+from torch_threads import one_torch_thread  # noqa: F401
 
 _PKGS = {"ref": (RC, RR, RB, RTPU), "port": (PC, PR, PB, PTPU)}
 _MAKERS = {"gpu": S.gpu_kernels, "tpu": S.serving_profiles,

@@ -45,6 +45,7 @@ from repro_torch.models import transformer as T
 from repro_torch.models.common import ModelConfig
 from repro_torch.models.moe import MoE
 from repro_torch.train import restore_checkpoint, save_checkpoint
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ref_configs.arch_names()
 
@@ -69,18 +70,6 @@ _LAYER_AXIS_PINS = {
     ("internlm2-20b", "16x16"): (2, 9216, 147456),
     ("hubert-xlarge", "16x16"): (4, 3840, 61440),
 }
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Meta tensors and smoke-size ops gain nothing from intra-op
-    threads, and test workers that each spin a full pool of them on a
-    shared CPU slow every test; this module runs on one and restores the
-    count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

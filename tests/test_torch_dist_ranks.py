@@ -45,6 +45,7 @@ import pytest
 import torch
 import torch.distributed as dist
 import torch.multiprocessing as mp
+from torch_threads import one_torch_thread  # noqa: F401
 
 _WORLD = 2
 _TIMEOUT_S = 240

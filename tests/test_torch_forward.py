@@ -29,6 +29,7 @@ from repro_torch import interop
 from repro_torch.kernels import launch_counts, reset_launch_counts
 from repro_torch.models import attention as PA
 from repro_torch.models import transformer as PT
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TOL = 1e-4
 

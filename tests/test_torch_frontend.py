@@ -20,7 +20,6 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
-import torch
 
 import repro.configs as ref_configs
 import repro.core.tpu as RTPU
@@ -40,6 +39,7 @@ import repro_torch.serve as PServe
 import repro_torch.serve.loadgen as PLoad
 from proptest import cases
 from repro_torch import interop
+from torch_threads import one_torch_thread  # noqa: F401
 
 pytestmark = pytest.mark.frontend
 
@@ -52,17 +52,6 @@ _REF = SimpleNamespace(name="ref", tpu=RTPU, obs=RObs, serve=RServe,
                        loadgen=RLoad)
 _PORT = SimpleNamespace(name="port", tpu=PTPU, obs=PObs, serve=PServe,
                         loadgen=PLoad)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's smoke-size ops gain nothing from intra-op threads, and
-    test workers that each spin a full pool of them on a shared CPU slow
-    every test; this module runs on one and restores the count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

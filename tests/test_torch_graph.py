@@ -45,6 +45,7 @@ from repro_torch.obs import MetricsRegistry as PMetrics
 from repro_torch.serve import (Composer, Request, ScheduleCache,
                                SchedulerPolicy, ServingEngine,
                                build_dag_triples)
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ARCHS = ("qwen1.5-0.5b", "mixtral-8x7b", "deepseek-v2-236b")
 

@@ -38,6 +38,7 @@ from repro_torch.models.common import ModelConfig as PConfig
 from repro_torch.models.moe import MoE as PMoE
 from repro_torch.models.ssm import Mamba as PMamba
 from repro_torch.serve import Request, SchedulerPolicy, ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TOL = 1e-4
 _AUX_TOL = 1e-6

@@ -32,6 +32,7 @@ from repro_torch.kernels import (decode_attention, decode_attention_plain,
                                  rmsnorm_rows, rmsnorm_rows_plain, scan_plan)
 from repro_torch.kernels import rmsnorm as RN
 from repro_torch.kernels.mamba_scan import _plan as _scan_plan_of
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 

@@ -42,21 +42,10 @@ from repro_torch.launch.train import train
 from repro_torch.models import transformer as T
 from repro_torch.pytree import flatten
 from repro_torch.roofline import roofline_row
+from torch_threads import one_torch_thread  # noqa: F401
 
 _MESH16 = types.SimpleNamespace(axis_names=("data", "model"),
                                 shape={"data": 16, "model": 16})
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Meta tensors and smoke-size ops gain nothing from intra-op
-    threads, and test workers that each spin a full pool of them on a
-    shared CPU slow every test; this module runs on one and restores the
-    count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

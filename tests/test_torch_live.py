@@ -18,7 +18,6 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
-import torch
 
 import repro.configs as ref_configs
 import repro.core.tpu as RTPU
@@ -39,6 +38,7 @@ import repro_torch.obs as PObs
 import repro_torch.serve as PServe
 import repro_torch.slice as PS
 from repro_torch import interop
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ARCHS = ("qwen1.5-0.5b", "mixtral-8x7b", "deepseek-v2-236b")
 
@@ -46,17 +46,6 @@ _REF = SimpleNamespace(name="ref", tpu=RTPU, gc=RGC, obs=RObs,
                        serve=RServe, slice=RS)
 _PORT = SimpleNamespace(name="port", tpu=PTPU, gc=PGC, obs=PObs,
                         serve=PServe, slice=PS)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's smoke-size ops gain nothing from intra-op threads, and
-    test workers that each spin a full pool of them on a shared CPU slow
-    every test; this module runs on one and restores the count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -38,6 +38,7 @@ from repro_torch.models.attention import MLA
 from repro_torch.models.common import ModelConfig as PConfig
 from repro_torch.models.common import rope_tables
 from repro_torch.serve import Request, SchedulerPolicy, ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ARCH = "deepseek-v2-236b"
 _TOL = 1e-4

@@ -21,6 +21,7 @@ from repro_torch import interop
 from repro_torch.models import attention as PA
 from repro_torch.models import common as PC
 from repro_torch.models import transformer as PT
+from torch_threads import one_torch_thread  # noqa: F401
 
 _VARIANTS = [(a, v) for a in ref_configs.arch_names() for v in ("full",
                                                                  "smoke")]

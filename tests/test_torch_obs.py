@@ -20,7 +20,6 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
-import torch
 
 import repro.configs as ref_configs
 import repro.core as RC
@@ -49,6 +48,7 @@ import repro_torch.obs as PObs
 import repro_torch.serve as PServe
 import repro_torch.slice as PS
 from repro_torch import interop
+from torch_threads import one_torch_thread  # noqa: F401
 
 _REF = SimpleNamespace(name="ref", core=RC, refine=RRefine, res=RRes,
                        tpu=RTPU, graph=RG, delta=RGD, obs=RObs,
@@ -60,17 +60,6 @@ _PORT = SimpleNamespace(name="port", core=PC, refine=PRefine, res=PRes,
 #: busy time against the span union: both sum the same float dts in
 #: different orders
 _CONS_RTOL = 1e-9
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's smoke-size ops gain nothing from intra-op threads, and
-    test workers that each spin a full pool of them on a shared CPU slow
-    every test; this module runs on one and restores the count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

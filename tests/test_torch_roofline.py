@@ -19,7 +19,6 @@ import functools
 import json
 
 import pytest
-import torch
 
 import repro.configs as ref_configs
 import repro.roofline as RR
@@ -32,21 +31,10 @@ import repro_torch.roofline.analysis as PA
 import repro_torch.roofline.flops as PF
 from repro_torch.configs import get_config
 from repro_torch.roofline.correction import validate_flops
+from torch_threads import one_torch_thread  # noqa: F401
 
 ARCHS = ref_configs.arch_names()
 SHAPE_NAMES = list(ref_configs.SHAPES)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """Meta tensors and smoke-size ops gain nothing from intra-op
-    threads, and test workers that each spin a full pool of them on a
-    shared CPU slow every test; this module runs on one and restores the
-    count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module", autouse=True)

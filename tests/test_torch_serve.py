@@ -31,6 +31,7 @@ from repro_torch.launch.serve import main as serve_main
 from repro_torch.launch.serve import serve
 from repro_torch.models import transformer as PT
 from repro_torch.serve import Request, SchedulerPolicy, ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ROOT = pathlib.Path(__file__).resolve().parents[1]
 
@@ -242,7 +243,7 @@ def test_refined_engine_matches_reference(smoke_f32, monkeypatch,
         assert getattr(SchedulerPolicy(), knob) == getattr(RPolicy(), knob)
 
 
-def test_unported_policies_raise(smoke_f32):
+def test_sliced_and_live_policies_serve_flat_tokens(smoke_f32):
     """Kernel slicing and the live composition, once refused at
     construction, now construct and serve: the same tokens as the flat
     path (their parity with the reference is in

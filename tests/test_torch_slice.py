@@ -20,7 +20,6 @@ from types import SimpleNamespace
 import jax
 import numpy as np
 import pytest
-import torch
 
 import repro.configs as ref_configs
 import repro.core as RC
@@ -45,6 +44,7 @@ import repro_torch.serve as PServe
 import repro_torch.slice as PS
 from repro_torch import interop
 from repro_torch.graph.delta import _FastGatedSim as PFastGated
+from torch_threads import one_torch_thread  # noqa: F401
 
 _ARCHS = ("qwen1.5-0.5b", "mixtral-8x7b", "deepseek-v2-236b")
 
@@ -55,17 +55,6 @@ _REF = SimpleNamespace(name="ref", core=RC, res=RRes, tpu=RTPU, graph=RG,
 _PORT = SimpleNamespace(name="port", core=PC, res=PRes, tpu=PTPU,
                         graph=PG, slice=PS, serve=PServe,
                         configs=pt_configs, fast_gated=PFastGated)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    """The port's smoke-size ops gain nothing from intra-op threads, and
-    test workers that each spin a full pool of them on a shared CPU slow
-    every test; this module runs on one and restores the count after."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

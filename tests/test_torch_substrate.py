@@ -24,6 +24,7 @@ from repro_torch.optim import (AdamWConfig, adamw_init, adamw_update,
 from repro_torch.train import (AsyncCheckpointer, LoopConfig, TrainLoop,
                                latest_step, restore_checkpoint,
                                save_checkpoint)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 # --------------------------------------------------------------------------
@@ -305,3 +306,30 @@ def test_overlap_schedule_interleaves_and_reduces_exposed_comm():
                 [ROv.CommTask(f"g{i}", 1e9) for i in range(4)]
     assert sched == ROv.overlap_schedule(ref_tasks)
     assert t_sched == ROv.exposed_comm_time(sched, ref_tasks)
+
+
+# --------------------------------------------------------------------------
+# the port's test files: one torch thread each
+# --------------------------------------------------------------------------
+
+def test_every_port_test_file_runs_on_one_torch_thread():
+    """Each ``tests/test_torch_*.py`` imports the module-scoped autouse
+    fixture of ``tests/torch_threads.py`` at its top level, so that six
+    test workers on a shared CPU do not each spin a full intra-op pool;
+    and that fixture is in force in this module."""
+    import ast
+    from pathlib import Path
+
+    files = sorted(Path(__file__).parent.glob("test_torch_*.py"))
+    assert len(files) >= 20
+    missing = []
+    for path in files:
+        tree = ast.parse(path.read_text(), filename=str(path))
+        if not any(isinstance(node, ast.ImportFrom)
+                   and node.module == "torch_threads"
+                   and any(a.name == "one_torch_thread" and a.asname is None
+                           for a in node.names)
+                   for node in tree.body):
+            missing.append(path.name)
+    assert not missing, f"no one-thread fixture in {missing}"
+    assert torch.get_num_threads() == 1

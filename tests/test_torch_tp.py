@@ -58,16 +58,9 @@ from repro_torch.models.xlstm import MLSTM, SLSTM
 from repro_torch.pytree import flatten, unflatten
 from repro_torch.train.sharded import sharded_grads
 from repro_torch.train.step import _to_device, accumulate_grads
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TOL = {torch.float32: 2e-5, torch.bfloat16: 2e-2}
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(autouse=True)

@@ -55,6 +55,7 @@ from repro_torch.optim.adamw import _decay_mask
 from repro_torch.pytree import flatten, path_str, unflatten
 from repro_torch.train import (latest_step, make_train_step,
                                restore_checkpoint)
+from torch_threads import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(autouse=True)
@@ -64,15 +65,6 @@ def _no_mesh():
     step to its mesh paths."""
     set_activation_axes()
     yield
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the driver runs six test workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

@@ -32,6 +32,7 @@ from repro_torch.models import transformer as PT
 from repro_torch.models import xlstm as PX
 from repro_torch.models.common import ModelConfig as PConfig
 from repro_torch.serve import Request, SchedulerPolicy, ServingEngine
+from torch_threads import one_torch_thread  # noqa: F401
 
 _TOL = 1e-4
 _ARCH = "xlstm-125m"
@@ -44,15 +45,6 @@ def _no_mesh():
     forward."""
     set_activation_axes()
     yield
-
-
-@pytest.fixture(scope="module", autouse=True)
-def _one_thread():
-    """One torch thread: the driver runs six test workers at once."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)
